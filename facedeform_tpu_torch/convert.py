@@ -1,0 +1,47 @@
+"""Carry models and configs across from the JAX package.
+
+A JAX-fitted model, including the low words of growing-kernel fits,
+evaluates in the port after
+
+    model = model_from_numpy({f: np.asarray(getattr(jax_model, f))
+                              for f in jax_model._fields
+                              if getattr(jax_model, f) is not None}, device)
+    cfg = config_from_fields(dataclasses.asdict(jax_cfg))
+    params = params_from_fields(jax_params._asdict())
+
+The inputs are plain numpy arrays and dicts, so this module needs no JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from facedeform_tpu_torch.config import DeformConfig, DeformParams
+from facedeform_tpu_torch.ops.fit import RBFModel
+
+
+def model_from_numpy(arrays: Mapping[str, np.ndarray], device="cpu") -> RBFModel:
+    """RBFModel from {field: array} (the JAX RBFModel's field names);
+    w_rbf_lo / w_poly_lo may be missing or None."""
+    return RBFModel(**{
+        f: None if a is None else torch.tensor(np.asarray(a, np.float32), device=device)
+        for f, a in arrays.items()
+    })
+
+
+def config_from_fields(fields: Mapping[str, Any]) -> DeformConfig:
+    """DeformConfig from dataclasses.asdict(jax DeformConfig); enums are
+    carried by value."""
+    return DeformConfig(**fields)
+
+
+def params_from_fields(fields: Mapping[str, Any]) -> DeformParams:
+    """DeformParams from jax DeformParams._asdict(); 0-d arrays become
+    Python numbers."""
+    return DeformParams(**{
+        k: v if isinstance(v, (int, float)) else np.asarray(v).item()
+        for k, v in fields.items()
+    })

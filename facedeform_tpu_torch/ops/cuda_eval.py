@@ -1,0 +1,298 @@
+"""Fused per-vertex RBF eval on the GPU: wrappers of the two hand-written
+CUDA kernels in csrc/eval.cu, their plain PyTorch twin, and the culled
+kernel's control-slab preparation.
+
+Counterpart of facedeform_tpu/ops/pallas_eval.py:
+  evaluate_cuda         <- evaluate_pallas         (_eval_kernel)
+  evaluate_cuda_culled  <- evaluate_pallas_culled  (_eval_kernel_culled)
+  evaluate_reference    <- _dense_reference
+
+A wrapper runs the plain version only for tensors on the CPU.  For CUDA
+tensors it launches its kernel or raises; it never falls back.  Each
+wrapper counts its launches in its `launches` attribute.
+
+The kernels are compiled with nvcc for sm_90a at first use, from the
+sources in csrc/ alone, into csrc/build/ under a name keyed by a hash of
+the sources and flags (a stale library is never loaded).  Importing this
+module builds nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import torch
+
+from facedeform_tpu_torch.config import PolyTerm, RBFKernel
+from facedeform_tpu_torch.ops.evaluate import _center_phi, evaluate
+from facedeform_tpu_torch.ops.falloff import falloff_weight
+from facedeform_tpu_torch.ops.morton import morton_codes
+from facedeform_tpu_torch.ops.tangent import project_to_tangents
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# Control-slab size of the culled kernel (kCullBlock in csrc/eval.cu).
+_CULL_BLOCK = 128
+
+# phi(s) <= 1e-12 beyond these squared-normalized-distance cutoffs.
+_CULL_S_CUTOFF = {
+    RBFKernel.GAUSSIAN: 27.7,      # exp(-s) = 1e-12
+    RBFKernel.WENDLAND_C2: 1.0,    # compact support (exact)
+}
+
+_lib = None
+
+
+def kernel_is_cullable(kernel: RBFKernel) -> bool:
+    """True when phi decays fast enough for slab culling to be exact to
+    <= 1e-12 (gaussian) or exactly (compact support)."""
+    return RBFKernel(kernel) in _CULL_S_CUTOFF
+
+
+def build() -> str:
+    """Compile csrc/*.cu unless the hash-keyed library exists, and load it.
+
+    Returns nvcc's output (register and spill counts from ptxas), or ""
+    when the library was already built or loaded.  Raises RuntimeError
+    when the CUDA toolkit is missing or nvcc fails.
+    """
+    global _lib
+    if _lib is not None:
+        return ""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    sources = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256()
+    for path in sources + sorted(_CSRC.glob("*.cuh")):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(_NVCC_FLAGS).encode())
+    build_dir = _CSRC / "build"
+    so = build_dir / f"libfd_eval_{digest.hexdigest()[:16]}.so"
+    log = ""
+    if not so.exists():
+        if CUDA_HOME is None:
+            raise RuntimeError("the CUDA toolkit (nvcc) was not found; set CUDA_HOME")
+        build_dir.mkdir(exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [str(Path(CUDA_HOME) / "bin" / "nvcc"), *_NVCC_FLAGS,
+               "-o", str(tmp), *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
+        log = proc.stdout + proc.stderr
+    lib = ctypes.CDLL(str(so))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fd_eval_dense.argtypes = [ptr] * 12 + [i32] * 6 + [f32, f32, ptr]
+    lib.fd_eval_dense.restype = i32
+    lib.fd_eval_culled.argtypes = [ptr] * 13 + [i32] * 5 + [f32, f32, ptr]
+    lib.fd_eval_culled.restype = i32
+    _lib = lib
+    return log
+
+
+def evaluate_reference(
+    model, points, dist2, gate, radius, falloffrate, kernel, term,
+    strict_parity=False, frame=None,
+):
+    """Plain PyTorch twin of both kernels: (new_points (V, 3), falloff (V,))."""
+    disp = evaluate(model, points, kernel, term)
+    if frame is not None:
+        disp = project_to_tangents(*frame, disp)
+    w, _ = falloff_weight(dist2, radius, falloffrate, strict_parity=strict_parity)
+    w = w * gate
+    return points + disp * w[:, None], w
+
+
+def _check_inputs(model, points, dist2, gate, frame):
+    """Raise on anything the kernels do not take."""
+    dev = points.device
+
+    def need(name, t, shape):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, points on {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+    if points.ndim != 2 or points.shape[1] != 3:
+        raise ValueError(f"points must be (V, 3), got {tuple(points.shape)}")
+    v = points.shape[0]
+    n = model.ctrl.shape[0]
+    n_layers = model.w_rbf.shape[0]
+    need("points", points, (v, 3))
+    need("dist2", dist2, (v,))
+    need("gate", gate, (v,))
+    need("model.ctrl", model.ctrl, (n, 3))
+    need("model.w_rbf", model.w_rbf, (n_layers, n, 3))
+    need("model.eps", model.eps, (n_layers, n))
+    m = model.w_poly.shape[0]
+    if m > 4:
+        raise ValueError(f"model.w_poly has {m} rows, at most 4 (linear tail)")
+    need("model.w_poly", model.w_poly, (m, 3))
+    if frame is not None:
+        if len(frame) != 3:
+            raise ValueError("frame must be a (u, v, n) triple")
+        for name, f in zip("uvn", frame):
+            need(f"frame.{name}", f, (v, 3))
+    if n == 0 or n_layers == 0:
+        raise ValueError("the model has no controls")
+
+
+def _w_poly4(model) -> torch.Tensor:
+    """The tail zero-padded to (4, 3): absent rows contribute nothing."""
+    w = torch.zeros((4, 3), dtype=torch.float32, device=model.ctrl.device)
+    w[: model.w_poly.shape[0]] = model.w_poly
+    return w
+
+
+def _inv_eps2(eps: torch.Tensor) -> torch.Tensor:
+    return 1.0 / torch.clamp(eps * eps, min=1e-30)
+
+
+def _r2(radius) -> float:
+    """radius^2 rounded as the f32 product the plain version forms."""
+    r = torch.tensor(float(radius), dtype=torch.float32)
+    return float(r * r)
+
+
+def _frame_ptrs(frame):
+    return [None] * 3 if frame is None else [f.data_ptr() for f in frame]
+
+
+def evaluate_cuda(
+    model, points, dist2, gate, radius, falloffrate,
+    kernel: RBFKernel, term: PolyTerm, strict_parity: bool = False, frame=None,
+):
+    """Fused deform step: (new_points (V, 3), falloff (V,)).
+
+    Same arguments and returns as pallas_eval.evaluate_pallas minus
+    tile_v/interpret.  frame=(u, v, n) of (V, 3) tangent attributes fuses
+    the tangent projection (applied to the raw displacement, before
+    falloff).  Every tensor must be float32, contiguous and on the points'
+    device."""
+    if points.device.type == "cpu":
+        return evaluate_reference(model, points, dist2, gate, radius, falloffrate,
+                                  kernel, term, strict_parity, frame)
+    if points.device.type != "cuda":
+        raise ValueError(f"evaluate_cuda takes CPU or CUDA tensors, got {points.device}")
+    _check_inputs(model, points, dist2, gate, frame)
+    kernel = RBFKernel(kernel)
+    v, n = points.shape[0], model.ctrl.shape[0]
+    out = torch.empty_like(points)
+    falloff = torch.empty_like(dist2)
+    if v == 0:
+        return out, falloff
+    build()
+    inv_eps2 = _inv_eps2(model.eps)
+    w_poly = _w_poly4(model)
+    with torch.cuda.device(points.device):
+        err = _lib.fd_eval_dense(
+            points.data_ptr(), dist2.data_ptr(), gate.data_ptr(),
+            model.ctrl.data_ptr(), model.w_rbf.data_ptr(), inv_eps2.data_ptr(),
+            w_poly.data_ptr(), *_frame_ptrs(frame), out.data_ptr(),
+            falloff.data_ptr(), v, n, model.w_rbf.shape[0], int(kernel),
+            int(strict_parity), int(_center_phi(kernel, term)),
+            _r2(radius), float(falloffrate),
+            torch.cuda.current_stream(points.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fd_eval_dense launch failed: CUDA error {err}")
+    evaluate_cuda.launches += 1
+    return out, falloff
+
+
+evaluate_cuda.launches = 0
+
+
+def culled_slabs(model, kernel: RBFKernel):
+    """Controls Morton-sorted and padded to whole 128-row slabs, with the
+    per-slab bbox table: (ctrl (NP, 3), w_rbf (L, NP, 3), inv_eps2 (L, NP),
+    bbox (NB, 8) = lo.xyz, hi.xyz, cutoff^2, 0).  Padding rows repeat the
+    last control (tight bboxes) with zero weight; the cutoff^2 is
+    max eps^2 over the slab and layers times the kernel's s cutoff."""
+    n_layers, n = model.eps.shape
+    order = torch.argsort(morton_codes(model.ctrl), stable=True)
+    ctrl = model.ctrl[order]
+    w_rbf = model.w_rbf[:, order]
+    inv_eps2 = _inv_eps2(model.eps)[:, order]
+    eps = model.eps[:, order]
+    n_pad = (-n) % _CULL_BLOCK
+    if n_pad:
+        ctrl = torch.cat([ctrl, ctrl[-1:].expand(n_pad, 3)])
+        w_rbf = torch.nn.functional.pad(w_rbf, (0, 0, 0, n_pad))
+        inv_eps2 = torch.nn.functional.pad(inv_eps2, (0, n_pad), value=1.0)
+        eps = torch.nn.functional.pad(eps, (0, n_pad), value=1e-6)
+    nb = ctrl.shape[0] // _CULL_BLOCK
+    slab = ctrl.reshape(nb, _CULL_BLOCK, 3)
+    eps_slab = torch.amax(eps.reshape(n_layers, nb, _CULL_BLOCK), dim=(0, 2))
+    cutoff2 = (eps_slab * eps_slab) * _CULL_S_CUTOFF[RBFKernel(kernel)]
+    bbox = torch.cat([
+        slab.amin(dim=1), slab.amax(dim=1), cutoff2[:, None],
+        torch.zeros((nb, 1), dtype=ctrl.dtype, device=ctrl.device),
+    ], dim=1)
+    return ctrl.contiguous(), w_rbf.contiguous(), inv_eps2.contiguous(), bbox
+
+
+def evaluate_cuda_culled(
+    model, points, dist2, gate, radius, falloffrate,
+    kernel: RBFKernel, term: PolyTerm, strict_parity: bool = False, frame=None,
+):
+    """Culled fused eval for decaying kernels (gaussian, Wendland).
+
+    Matches evaluate_cuda to within the phi <= 1e-12 truncation.  Vertex
+    blocks skip control slabs whose bbox gap exceeds the cutoff, so points
+    in a spatially coherent order (mesh order, or ops.morton.spatial_order)
+    cull best; any order stays correct."""
+    if not kernel_is_cullable(kernel):
+        raise ValueError(
+            f"culled eval needs a decaying kernel, got {RBFKernel(kernel).name}"
+        )
+    if points.device.type == "cpu":
+        return evaluate_reference(model, points, dist2, gate, radius, falloffrate,
+                                  kernel, term, strict_parity, frame)
+    if points.device.type != "cuda":
+        raise ValueError(
+            f"evaluate_cuda_culled takes CPU or CUDA tensors, got {points.device}"
+        )
+    _check_inputs(model, points, dist2, gate, frame)
+    v = points.shape[0]
+    out = torch.empty_like(points)
+    falloff = torch.empty_like(dist2)
+    if v == 0:
+        return out, falloff
+    build()
+    ctrl, w_rbf, inv_eps2, bbox = culled_slabs(model, kernel)
+    w_poly = _w_poly4(model)
+    with torch.cuda.device(points.device):
+        err = _lib.fd_eval_culled(
+            points.data_ptr(), dist2.data_ptr(), gate.data_ptr(),
+            ctrl.data_ptr(), w_rbf.data_ptr(), inv_eps2.data_ptr(),
+            w_poly.data_ptr(), *_frame_ptrs(frame), bbox.data_ptr(),
+            out.data_ptr(), falloff.data_ptr(), v, bbox.shape[0],
+            model.w_rbf.shape[0], int(RBFKernel(kernel)), int(strict_parity),
+            _r2(radius), float(falloffrate),
+            torch.cuda.current_stream(points.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fd_eval_culled launch failed: CUDA error {err}")
+    evaluate_cuda_culled.launches += 1
+    return out, falloff
+
+
+evaluate_cuda_culled.launches = 0

@@ -1,0 +1,124 @@
+"""Dense linear solve: f32 LU + iterative refinement with a float64 residual
+(port of the dense route of facedeform_tpu/ops/solve.py).
+
+The JAX package factorizes in f32 and evaluates the refinement residual
+B - A X in emulated double precision (a Dekker-split, double-float
+pairwise tree), because the TPU has no float64.  That tree approximates
+exactly the float64 residual of the f32 matrix against the f32 solution
+pair, and the H100 has native fp64, so the port computes the residual in
+float64 directly.  The f32 LU, the double-float solution pair
+(x_hi, x_lo) and the SolveReport semantics stay as they are.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from facedeform_tpu_torch.utils.precision import highest_precision
+
+
+class SolveReport(NamedTuple):
+    """Structured solver outcome.  The health criterion is the normwise
+    backward error residual / (||A|| ||X|| + ||B||)."""
+
+    residual_norm: torch.Tensor  # ||B - A X||_F after refinement
+    rhs_norm: torch.Tensor       # ||B||_F
+    # ||A||_F ||X||_F + ||B||_F — backward-error denominator
+    scale_norm: Optional[torch.Tensor] = None
+    # max |diag U| / min |diag U|: growth-factor condition indicator
+    cond_est: Optional[torch.Tensor] = None
+    # per-column backward errors ||r_c|| / (||A|| ||x_c|| + ||b_c||), (k,)
+    col_backward: Optional[torch.Tensor] = None
+
+    def backward_error(self) -> torch.Tensor:
+        """Normwise backward error."""
+        denom = self.scale_norm if self.scale_norm is not None else self.rhs_norm
+        return self.residual_norm / torch.clamp(denom, min=1e-30)
+
+
+def _report_from(a_norm, lu_diag, x, b, r) -> SolveReport:
+    """Assemble the full report given the factor diagonal and residual."""
+    x_norm = torch.linalg.norm(x)
+    b_norm = torch.linalg.norm(b)
+    absd = torch.abs(lu_diag)
+    cond = torch.max(absd) / torch.clamp(torch.min(absd), min=1e-30)
+    col_scale = a_norm * torch.linalg.norm(x, dim=0) + torch.linalg.norm(b, dim=0)
+    col_back = torch.linalg.norm(r, dim=0) / torch.clamp(col_scale, min=1e-30)
+    return SolveReport(
+        residual_norm=torch.linalg.norm(r),
+        rhs_norm=b_norm,
+        scale_norm=a_norm * x_norm + b_norm,
+        cond_est=cond,
+        col_backward=col_back,
+    )
+
+
+def lu_factor_hp(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """f32 LU factorization with TF32 off.
+
+    lu_factor_ex does not raise on a zero pivot: a singular system shows
+    up as a non-finite backward error in the SolveReport, which
+    errors.check_solve turns into SolveFailedError (the JAX package's
+    behaviour)."""
+    with highest_precision():
+        lu, piv, _ = torch.linalg.lu_factor_ex(a.float())
+    return lu, piv
+
+
+def _residual64(a64: torch.Tensor, x_hi, x_lo, b64: torch.Tensor) -> torch.Tensor:
+    """B - A (x_hi + x_lo) in float64, rounded to f32.  This is the value
+    the JAX package's double-float residual tree approximates."""
+    x = x_hi.double()
+    if x_lo is not None:
+        x = x + x_lo.double()
+    return (b64 - a64 @ x).float()
+
+
+def _two_sum(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Knuth TwoSum: s + e == a + b exactly.  Eager PyTorch runs each op as
+    its own rounded f32 kernel, so nothing contracts or reassociates it."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _lu_refined_impl(a, b, n_refine, want_lo, lu_piv=None):
+    """Iterative refinement with the solution kept in double-float.
+
+    Folding each correction into an f32 x would re-round the solution every
+    sweep and stall the forward error near u * cond; carrying (x_hi, x_lo)
+    converges it to ~cond * u^2.  Returns ((x_hi, x_lo), report, (lu, piv)).
+    """
+    a = a.float()
+    b = b.float()
+    a64, b64 = a.double(), b.double()
+    with highest_precision():
+        lu, piv = lu_factor_hp(a) if lu_piv is None else lu_piv
+        x_hi = torch.linalg.lu_solve(lu, piv, b)
+        x_lo = torch.zeros_like(x_hi)
+        for _ in range(n_refine):
+            r = _residual64(a64, x_hi, x_lo, b64)
+            dx = torch.linalg.lu_solve(lu, piv, r)
+            # bits of dx lost rounding into x_hi go to x_lo
+            x_hi, e = _two_sum(x_hi, dx)
+            x_lo = x_lo + e
+    # The caller of want_lo=False receives x_hi alone: report the residual
+    # of that f32 solution, not of the internal pair.
+    r = _residual64(a64, x_hi, x_lo if want_lo else None, b64)
+    report = _report_from(
+        torch.linalg.norm(a), torch.diagonal(lu), x_hi, b, r
+    )
+    if not want_lo:
+        x_lo = torch.zeros_like(x_hi)
+    return (x_hi, x_lo), report, (lu, piv)
+
+
+def lu_solve_refined(
+    a: torch.Tensor, b: torch.Tensor, n_refine: int = 2
+) -> tuple[torch.Tensor, SolveReport]:
+    """Solve A X = B (A: (n, n), B: (n, k)) in f32 with refinement; returns
+    the f32 solution and its SolveReport (see errors.check_solve)."""
+    (x, _), report, _ = _lu_refined_impl(a, b, n_refine, want_lo=False)
+    return x, report

@@ -1,0 +1,82 @@
+"""Structured error types and the solve health check (port of
+facedeform_tpu/utils/errors.py)."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+class FaceDeformError(Exception):
+    """Base class for all framework errors."""
+
+
+class ShapeMismatchError(FaceDeformError):
+    """Rest/deform rig point counts differ."""
+
+
+class SolveFailedError(FaceDeformError):
+    """RBF system solve did not converge (checked host-side from the
+    SolveReport's backward error)."""
+
+
+class CaptureError(FaceDeformError):
+    """Capture initialization/flood-fill failure."""
+
+
+# Normwise backward error ||r|| / (||A|| ||X|| + ||B||) above which a solve
+# is declared failed; a healthy refined solve lands orders of magnitude
+# below, a singular rig at NaN or far above (see the JAX package's note).
+SOLVE_BACKWARD_RTOL = 1e-6
+
+# Threshold for the matrix-free Krylov solves of the conditionally-PD
+# kernels, which converge to the f32 Krylov noise floor.
+KRYLOV_CPD_BACKWARD_RTOL = 1e-3
+
+# Legacy rhs-relative threshold, used only for reports lacking scale_norm.
+SOLVE_RESIDUAL_RTOL = 1e-3
+
+
+def check_solve(report, rtol: float = SOLVE_BACKWARD_RTOL) -> None:
+    """Host-side solver health check; raises SolveFailedError on blow-up.
+
+    Checks the normwise backward error plus each RHS column's backward
+    error, so one degenerate displacement axis cannot hide inside the
+    Frobenius aggregate."""
+    if getattr(report, "scale_norm", None) is None:
+        res, rhs = (float(v) for v in torch.stack(
+            [report.residual_norm, report.rhs_norm]).cpu())
+        if not math.isfinite(res) or (
+            rhs > 0 and res > SOLVE_RESIDUAL_RTOL * max(rhs, 1e-30)
+        ):
+            raise SolveFailedError(
+                f"RBF solve failed: residual {res:.3e} vs rhs {rhs:.3e} "
+                f"(rtol {SOLVE_RESIDUAL_RTOL:g}) — singular or "
+                "ill-conditioned system"
+            )
+        return
+
+    # one device->host copy for all scalars
+    parts = [report.residual_norm, report.rhs_norm, report.scale_norm]
+    if report.col_backward is not None:
+        parts.append(report.col_backward)
+    vals = torch.cat([p.reshape(-1).double() for p in parts]).cpu().tolist()
+    res, rhs, scale = vals[:3]
+    col_worst = max(vals[3:], default=0.0)
+    backward = res / max(scale, 1e-30)
+    if (
+        not math.isfinite(res)
+        or not math.isfinite(col_worst)
+        or backward > rtol
+        or col_worst > rtol
+    ):
+        cond_txt = ""
+        if getattr(report, "cond_est", None) is not None:
+            cond_txt = f", cond estimate {float(report.cond_est):.2e}"
+        raise SolveFailedError(
+            f"RBF solve failed: backward error {backward:.3e} "
+            f"(worst column {col_worst:.3e}, rtol {rtol:g}; residual "
+            f"{res:.3e}, rhs {rhs:.3e}{cond_txt}) — singular or degenerate "
+            "system (duplicate/coincident markers?)"
+        )

@@ -1,0 +1,27 @@
+"""PyTorch port: importing the package pulls in no JAX and builds nothing."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_import_loads_no_jax_and_builds_nothing(tmp_path):
+    code = (
+        "import sys, facedeform_tpu_torch\n"
+        "import facedeform_tpu_torch.benchmark, facedeform_tpu_torch.convert\n"
+        "import facedeform_tpu_torch.ops.cuda_eval as ce\n"
+        "jax = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')]\n"
+        "assert not jax, jax\n"
+        "assert ce._lib is None\n"
+        "assert (ce.evaluate_cuda.launches, ce.evaluate_cuda_culled.launches) == (0, 0)\n"
+    )
+    build = REPO / "facedeform_tpu_torch" / "csrc" / "build"
+    before = sorted(build.glob("*")) if build.exists() else []
+    subprocess.run(
+        [sys.executable, "-c", code], check=True, cwd=tmp_path,
+        env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin"}, timeout=120,
+    )
+    after = sorted(build.glob("*")) if build.exists() else []
+    assert after == before
