@@ -4,10 +4,14 @@ NVIDIA H100.
 Same math and public names as the JAX package (which stays the reference):
   DeformConfig / DeformParams  — the node's parameter surface
   Deformer                     — fit(rest_rig, deformed_rig, device=...)
-                                 -> apply(points)
-The GPU eval kernels are CUDA C++ in csrc/, compiled for sm_90a at first
-use (ops/cuda_eval.py); importing the package builds nothing and imports
-no JAX.
+                                 -> apply(points), jacobian(points),
+                                 transform_attrs(points, attrs, weight)
+  parallel.batched             — the animated shot: fit_frames ->
+                                 apply_frames -> transport_frames
+  ops.temporal                 — Savitzky-Golay rig smoothing of a shot
+The GPU kernels (dense, culled and frames eval, Jacobian) are CUDA C++ in
+csrc/, compiled for sm_90a at first use (ops/cuda_eval.py); importing the
+package builds nothing and imports no JAX.
 """
 
 from facedeform_tpu_torch.config import (

@@ -1,6 +1,6 @@
 """Headline measurement of the PyTorch port on a CUDA GPU (counterpart of
-facedeform_tpu/benchmark.py, same record keys, minus the 8-frame sequence
-which belongs to the animated-shot slice).
+facedeform_tpu/benchmark.py, same record keys, plus the 8-frame animated
+sequence's per-frame time as a record key, `sequence_ms_per_frame`).
 
 The unit of eval throughput is one phi(|v - c|) evaluation, so a
 1M-vertex x 1k-control frame is 1e9 evals.  Device times come from CUDA
@@ -28,23 +28,25 @@ def device_label() -> str:
     return out[0].strip()
 
 
-def time_cuda(fns: dict, rounds: int = 5, iters: int = 10) -> dict:
+def time_cuda(fns: dict, rounds: int = 5, iters=10) -> dict:
     """ms per call of each fn, per round: {name: [ms, ...]}.  One warm-up
-    call each, then rounds interleaved across the fns."""
+    call each, then rounds interleaved across the fns.  iters is the calls
+    per round, one int or {name: int} (slow plain versions take fewer)."""
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
     times = {name: [] for name in fns}
     for _ in range(rounds):
         for name, fn in fns.items():
+            n = iters[name] if isinstance(iters, dict) else iters
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            for _ in range(iters):
+            for _ in range(n):
                 fn()
             end.record()
             end.synchronize()
-            times[name].append(start.elapsed_time(end) / iters)
+            times[name].append(start.elapsed_time(end) / n)
     return times
 
 
@@ -60,8 +62,9 @@ def _log(msg: str, label: str) -> None:
 
 def run_headline(n_ctrl: int = 1000, n_verts: int = 1_000_000) -> dict:
     """Solve latency, dense/culled eval throughput against the plain path,
-    the localized 4k rig and the capture-gated run; commentary goes to
-    stderr, the record is returned.  Needs a CUDA device."""
+    the localized 4k rig, the capture-gated run and the 8-frame animated
+    sequence (batched.deform_frames); commentary goes to stderr, the record
+    is returned.  Needs a CUDA device."""
     if not torch.cuda.is_available():
         raise RuntimeError("the benchmark measures a CUDA device and found none")
     from facedeform_tpu_torch.config import DeformConfig, DeformParams
@@ -134,6 +137,23 @@ def run_headline(n_ctrl: int = 1000, n_verts: int = 1_000_000) -> dict:
     _log(f"capture-gated ({frac * 100:.1f}% active): {gated_ms:.4f} ms/frame "
          f"({dense_ms / gated_ms:.3f}x all-active)", label)
 
+    # --- animated sequence: 8 poses, batched fit + all-frames eval --------
+    from facedeform_tpu_torch.parallel import batched
+
+    n_frames = 8
+    frames = np.stack([
+        rest + 0.05 * rng.standard_normal((n_ctrl, 3)).astype(np.float32)
+        for _ in range(n_frames)
+    ])
+    frames_dev = torch.as_tensor(frames, device=dev)
+    gate = torch.ones(n_verts, device=dev)
+    seq = time_cuda({"seq": lambda: batched.deform_frames(
+        rest_dev, frames_dev, pts, dist2, gate, cfg, params, device=dev)})
+    seq_ms, seq_median, seq_spread = stats(seq["seq"])
+    _log(f"animated sequence ({n_frames} frames, fit + eval): "
+         f"{seq_ms / n_frames:.4f} ms/frame (median {seq_median / n_frames:.4f}, "
+         f"spread {seq_spread * 100:.1f}%)", label)
+
     dense_rate = evals / (dense_ms * 1e-3)
     return {
         "metric": "vertex_kernel_evals_per_sec_1Mv_1kc",
@@ -157,6 +177,9 @@ def run_headline(n_ctrl: int = 1000, n_verts: int = 1_000_000) -> dict:
         "capture_gated_ms_per_frame": gated_ms,
         "capture_gated_active_fraction": frac,
         "capture_gated_speedup": dense_ms / gated_ms,
+        "sequence_ms_per_frame": seq_ms / n_frames,
+        "sequence_ms_per_frame_median": seq_median / n_frames,
+        "sequence_spread": seq_spread,
     }
 
 

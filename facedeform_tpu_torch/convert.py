@@ -9,6 +9,9 @@ evaluates in the port after
     cfg = config_from_fields(dataclasses.asdict(jax_cfg))
     params = params_from_fields(jax_params._asdict())
 
+A frames-stacked model of parallel.batched.fit_frames (w_rbf (F, L, N, 3),
+w_poly (F, m, 3), with the lo words of the per-pose route or without them,
+as the shared-factorization route returns it) carries over the same way.
 The inputs are plain numpy arrays and dicts, so this module needs no JAX.
 """
 

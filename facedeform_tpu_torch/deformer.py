@@ -14,8 +14,9 @@ import dataclasses
 import torch
 
 from facedeform_tpu_torch.config import DeformConfig, DeformParams
-from facedeform_tpu_torch.ops import cuda_eval
+from facedeform_tpu_torch.ops import cuda_eval, cuda_jacobian
 from facedeform_tpu_torch.ops import fit as fit_mod
+from facedeform_tpu_torch.ops import jacobian as jac_mod
 from facedeform_tpu_torch.ops.evaluate import evaluate
 from facedeform_tpu_torch.ops.falloff import falloff_weight
 from facedeform_tpu_torch.ops.fit import GROWING_KERNELS, RBFModel
@@ -104,6 +105,44 @@ class Deformer:
         if kernel in GROWING_KERNELS:
             raise _precise_not_ported(kernel)
         return evaluate(self.model, self._points(points), kernel, self.cfg.term)
+
+    def jacobian(self, points) -> torch.Tensor:
+        """Spatial Jacobian of the displacement field at points, (V, 3, 3):
+        the CUDA Jacobian kernel on a CUDA model, the plain
+        displacement_jacobian on a CPU model."""
+        kernel = fit_mod.effective_kernel(self.cfg)
+        return cuda_jacobian.jacobian_cuda(
+            self.model, self._points(points).contiguous(), kernel, self.cfg.term)
+
+    def deformed_normals(self, points, normals, weight, frame=None) -> torch.Tensor:
+        """Transport normals through the applied map y = x + w (T) d(x) by
+        the cofactor rule (the reference leaves rest-pose normals).
+
+        points: (V, 3) REST positions; normals: (V, 3) rest normals;
+        weight: (V,) the falloff apply() returned; frame: the (u, v, n)
+        apply() used, when cfg.tangent."""
+        return jac_mod.transport_normals(
+            self.jacobian(points), normals, weight, self.cfg, frame)
+
+    def transform_attrs(self, points, attrs, weight, frame=None, kinds=None,
+                        want_stretch=False, f_map=None):
+        """Transport point attributes through the applied map's deformation
+        gradient, one shared Jacobian for the batch: (V, 3) attrs as
+        vectors (N by the cofactor rule), (V, 4) as orientation
+        quaternions.  Returns {name: array}, plus the (V, 3) principal
+        stretches when want_stretch (see ops.jacobian.transport_attrs)."""
+        return jac_mod.transport_attrs(
+            self.jacobian(points), attrs, weight, self.cfg, frame, kinds,
+            want_stretch=want_stretch, f_map=f_map,
+        )
+
+    def principal_stretches(self, points, weight, frame=None, f_map=None) -> torch.Tensor:
+        """Singular values of the applied map's deformation gradient,
+        descending; (V, 3): > 1 stretch, < 1 compression."""
+        f = jac_mod._applied_gradient(self.jacobian(points), weight, self.cfg, frame)
+        if f_map is not None:
+            f = f_map(f)
+        return jac_mod.principal_stretches(f)
 
     def apply(
         self,

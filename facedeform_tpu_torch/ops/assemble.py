@@ -56,7 +56,9 @@ def assemble_system(
 
 
 def assemble_rhs(delta: torch.Tensor, term: PolyTerm) -> torch.Tensor:
-    """Right-hand side (N + m, 3): displacements, zero rows for the tail."""
+    """Right-hand side (..., N + m, 3): displacements (..., N, 3), zero rows
+    for the tail; a leading axis carries the poses of a shot."""
     m = {PolyTerm.LINEAR: 4, PolyTerm.CONSTANT: 1, PolyTerm.ZERO: 0}[PolyTerm(term)]
-    pad = torch.zeros((m, delta.shape[1]), dtype=delta.dtype, device=delta.device)
-    return torch.cat([delta, pad], dim=0)
+    pad = torch.zeros(delta.shape[:-2] + (m, delta.shape[-1]), dtype=delta.dtype,
+                      device=delta.device)
+    return torch.cat([delta, pad], dim=-2)

@@ -1,20 +1,24 @@
-"""Fused per-vertex RBF eval on the GPU: wrappers of the two hand-written
-CUDA kernels in csrc/eval.cu, their plain PyTorch twin, and the culled
-kernel's control-slab preparation.
+"""Fused per-vertex RBF eval on the GPU: wrappers of the hand-written CUDA
+kernels in csrc/eval.cu and csrc/frames.cu, their plain PyTorch twins, and
+the culled kernel's control-slab preparation.
 
 Counterpart of facedeform_tpu/ops/pallas_eval.py:
-  evaluate_cuda         <- evaluate_pallas         (_eval_kernel)
-  evaluate_cuda_culled  <- evaluate_pallas_culled  (_eval_kernel_culled)
-  evaluate_reference    <- _dense_reference
+  evaluate_cuda              <- evaluate_pallas         (_eval_kernel)
+  evaluate_cuda_culled       <- evaluate_pallas_culled  (_eval_kernel_culled)
+  evaluate_cuda_frames       <- evaluate_pallas_frames  (_eval_frames_kernel)
+  evaluate_reference         <- _dense_reference
+  evaluate_frames_reference  <- per-frame evaluate_reference
 
 A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; it never falls back.  Each
 wrapper counts its launches in its `launches` attribute.
 
-The kernels are compiled with nvcc for sm_90a at first use, from the
-sources in csrc/ alone, into csrc/build/ under a name keyed by a hash of
-the sources and flags (a stale library is never loaded).  Importing this
-module builds nothing.
+The kernels (these and csrc/jacobian.cu's, ops/cuda_jacobian.py) are
+compiled with nvcc for sm_90a at first use, from the sources in csrc/
+alone, one nvcc per source started together, then linked into one
+library in csrc/build/ under a name keyed by a hash of the sources and
+flags (a stale library is never loaded).  Importing this module builds
+nothing.
 """
 
 from __future__ import annotations
@@ -30,13 +34,14 @@ import torch
 from facedeform_tpu_torch.config import PolyTerm, RBFKernel
 from facedeform_tpu_torch.ops.evaluate import _center_phi, evaluate
 from facedeform_tpu_torch.ops.falloff import falloff_weight
+from facedeform_tpu_torch.ops.fit import RBFModel
 from facedeform_tpu_torch.ops.morton import morton_codes
 from facedeform_tpu_torch.ops.tangent import project_to_tangents
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Control-slab size of the culled kernel (kCullBlock in csrc/eval.cu).
@@ -60,9 +65,11 @@ def kernel_is_cullable(kernel: RBFKernel) -> bool:
 def build() -> str:
     """Compile csrc/*.cu unless the hash-keyed library exists, and load it.
 
-    Returns nvcc's output (register and spill counts from ptxas), or ""
-    when the library was already built or loaded.  Raises RuntimeError
-    when the CUDA toolkit is missing or nvcc fails.
+    Each source compiles in its own nvcc process, all started together,
+    then one nvcc links the objects.  Returns nvcc's output (register and
+    spill counts from ptxas), or "" when the library was already built or
+    loaded.  Raises RuntimeError when the CUDA toolkit is missing or nvcc
+    fails.
     """
     global _lib
     if _lib is not None:
@@ -81,22 +88,42 @@ def build() -> str:
         if CUDA_HOME is None:
             raise RuntimeError("the CUDA toolkit (nvcc) was not found; set CUDA_HOME")
         build_dir.mkdir(exist_ok=True)
+        nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc")
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [build_dir / f"{src.stem}.{tag}.o" for src in sources]
+        logs = [obj.with_suffix(".log") for obj in objs]
+        procs = []
+        for src, obj, log_path in zip(sources, objs, logs):
+            with open(log_path, "w") as out:
+                procs.append(subprocess.Popen(
+                    [nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                    stdout=out, stderr=subprocess.STDOUT))
+        for proc in procs:
+            proc.wait()
+        log = "".join(path.read_text() for path in logs)
+        failed = [src.name for src, p in zip(sources, procs) if p.returncode != 0]
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [str(Path(CUDA_HOME) / "bin" / "nvcc"), *_NVCC_FLAGS,
-               "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-            )
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed = ["link"]
+        for path in objs + logs:
+            path.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
         os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
-        log = proc.stdout + proc.stderr
     lib = ctypes.CDLL(str(so))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fd_eval_dense.argtypes = [ptr] * 12 + [i32] * 6 + [f32, f32, ptr]
     lib.fd_eval_dense.restype = i32
     lib.fd_eval_culled.argtypes = [ptr] * 13 + [i32] * 5 + [f32, f32, ptr]
     lib.fd_eval_culled.restype = i32
+    lib.fd_eval_frames.argtypes = [ptr] * 12 + [i32] * 9 + [f32, f32, ptr]
+    lib.fd_eval_frames.restype = i32
+    lib.fd_jacobian.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.fd_jacobian.restype = i32
     _lib = lib
     return log
 
@@ -114,44 +141,50 @@ def evaluate_reference(
     return points + disp * w[:, None], w
 
 
-def _check_inputs(model, points, dist2, gate, frame):
-    """Raise on anything the kernels do not take."""
+def _need(name, t, shape, dev):
+    """Raise unless t is a contiguous float32 tensor of `shape` on `dev`."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, points on {dev}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_inputs(model, points, dist2, gate, frame, frames=False):
+    """Raise on anything the kernels do not take.  frames=True expects the
+    frames-stacked model: w_rbf (F, L, N, 3), w_poly (F, m, 3)."""
     dev = points.device
-
-    def need(name, t, shape):
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"{name} must be a tensor, got {type(t).__name__}")
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, points on {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
     if points.ndim != 2 or points.shape[1] != 3:
         raise ValueError(f"points must be (V, 3), got {tuple(points.shape)}")
     v = points.shape[0]
     n = model.ctrl.shape[0]
-    n_layers = model.w_rbf.shape[0]
-    need("points", points, (v, 3))
-    need("dist2", dist2, (v,))
-    need("gate", gate, (v,))
-    need("model.ctrl", model.ctrl, (n, 3))
-    need("model.w_rbf", model.w_rbf, (n_layers, n, 3))
-    need("model.eps", model.eps, (n_layers, n))
-    m = model.w_poly.shape[0]
-    if m > 4:
-        raise ValueError(f"model.w_poly has {m} rows, at most 4 (linear tail)")
-    need("model.w_poly", model.w_poly, (m, 3))
+    lead = tuple(model.w_rbf.shape[:1]) if frames else ()
+    if model.w_rbf.ndim != len(lead) + 3:
+        raise ValueError(f"model.w_rbf has shape {tuple(model.w_rbf.shape)}")
+    n_layers = model.w_rbf.shape[len(lead)]
+    _need("points", points, (v, 3), dev)
+    _need("dist2", dist2, (v,), dev)
+    _need("gate", gate, (v,), dev)
+    _need("model.ctrl", model.ctrl, (n, 3), dev)
+    _need("model.w_rbf", model.w_rbf, lead + (n_layers, n, 3), dev)
+    _need("model.eps", model.eps, (n_layers, n), dev)
+    m = model.w_poly.shape[-2] if model.w_poly.ndim == len(lead) + 2 else -1
+    if not 0 <= m <= 4:
+        raise ValueError(f"model.w_poly has shape {tuple(model.w_poly.shape)}: "
+                         "at most 4 rows (linear tail)")
+    _need("model.w_poly", model.w_poly, lead + (m, 3), dev)
     if frame is not None:
         if len(frame) != 3:
             raise ValueError("frame must be a (u, v, n) triple")
         for name, f in zip("uvn", frame):
-            need(f"frame.{name}", f, (v, 3))
-    if n == 0 or n_layers == 0:
-        raise ValueError("the model has no controls")
+            _need(f"frame.{name}", f, (v, 3), dev)
+    if n == 0 or n_layers == 0 or (frames and model.w_rbf.shape[0] == 0):
+        raise ValueError("the model has no controls or no frames")
 
 
 def _w_poly4(model) -> torch.Tensor:
@@ -296,3 +329,93 @@ def evaluate_cuda_culled(
 
 
 evaluate_cuda_culled.launches = 0
+
+
+# Frames per launch of the frames kernel (kMaxFrames in csrc/frames.cu):
+# its 3F accumulators live in registers, so the wrapper loops over chunks.
+# 16 holds without spills and ran 0.315 ms per frame at F = 32 against
+# 0.410 ms with 8 (1M x 1k, H100).
+FRAMES_PER_LAUNCH = 16
+
+
+def frame_model(model, f: int) -> RBFModel:
+    """Frame f of a frames-stacked model (ctrl and eps are shared)."""
+    return RBFModel(ctrl=model.ctrl, w_rbf=model.w_rbf[f], w_poly=model.w_poly[f],
+                    eps=model.eps)
+
+
+def evaluate_frames_reference(
+    model, points, dist2, gate, radius, falloffrate, kernel, term,
+    strict_parity=False, frame=None,
+):
+    """Plain PyTorch twin of the frames kernel: per-frame evaluate, tangent
+    projection, then points + disp * w.  model.w_rbf (F, L, N, 3),
+    model.w_poly (F, m, 3); returns ((F, V, 3) positions, (V,) falloff)."""
+    w, _ = falloff_weight(dist2, radius, falloffrate, strict_parity=strict_parity)
+    w = w * gate
+    outs = []
+    for f in range(model.w_rbf.shape[0]):
+        disp = evaluate(frame_model(model, f), points, kernel, term)
+        if frame is not None:
+            disp = project_to_tangents(*frame, disp)
+        outs.append(points + disp * w[:, None])
+    return torch.stack(outs), w
+
+
+def pack_frames(w: torch.Tensor) -> torch.Tensor:
+    """(F, L, N, 3) weights -> (L, N, 3F), column 3f + k = frame f's
+    component k: the layout both frames kernels read."""
+    f, n_layers, n, _ = w.shape
+    return w.permute(1, 2, 0, 3).reshape(n_layers, n, 3 * f).contiguous()
+
+
+def evaluate_cuda_frames(
+    model, points, dist2, gate, radius, falloffrate,
+    kernel: RBFKernel, term: PolyTerm, strict_parity: bool = False, frame=None,
+):
+    """All-frames fused deform step: ((F, V, 3) positions, (V,) falloff).
+
+    Same arguments and returns as pallas_eval.evaluate_pallas_frames minus
+    tile_v/interpret: model.w_rbf (F, L, N, 3) and model.w_poly (F, m, 3)
+    carry a leading frame axis, ctrl and eps are shared.  Distances and phi
+    are computed once per (vertex, control) for up to FRAMES_PER_LAUNCH
+    frames; longer shots take one launch per chunk."""
+    if points.device.type == "cpu":
+        return evaluate_frames_reference(model, points, dist2, gate, radius, falloffrate,
+                                         kernel, term, strict_parity, frame)
+    if points.device.type != "cuda":
+        raise ValueError(f"evaluate_cuda_frames takes CPU or CUDA tensors, got {points.device}")
+    _check_inputs(model, points, dist2, gate, frame, frames=True)
+    kernel = RBFKernel(kernel)
+    n_frames, n_layers, n, _ = model.w_rbf.shape
+    v = points.shape[0]
+    out = torch.empty((n_frames, v, 3), dtype=torch.float32, device=points.device)
+    falloff = torch.empty_like(dist2)
+    if v == 0:
+        return out, falloff
+    build()
+    w_pack = pack_frames(model.w_rbf)
+    m = model.w_poly.shape[1]
+    w_poly = torch.zeros((n_frames, 4, 3), dtype=torch.float32, device=points.device)
+    w_poly[:, :m] = model.w_poly
+    w_poly = w_poly.permute(1, 0, 2).reshape(4, 3 * n_frames).contiguous()
+    inv_eps2 = _inv_eps2(model.eps)
+    stream = torch.cuda.current_stream(points.device).cuda_stream
+    with torch.cuda.device(points.device):
+        for f0 in range(0, n_frames, FRAMES_PER_LAUNCH):
+            nf = min(FRAMES_PER_LAUNCH, n_frames - f0)
+            err = _lib.fd_eval_frames(
+                points.data_ptr(), dist2.data_ptr(), gate.data_ptr(),
+                model.ctrl.data_ptr(), w_pack.data_ptr(), inv_eps2.data_ptr(),
+                w_poly.data_ptr(), *_frame_ptrs(frame), out.data_ptr(),
+                falloff.data_ptr(), v, n, n_layers, n_frames, f0, nf, int(kernel),
+                int(strict_parity), int(_center_phi(kernel, term)),
+                _r2(radius), float(falloffrate), stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"fd_eval_frames launch failed: CUDA error {err}")
+            evaluate_cuda_frames.launches += 1
+    return out, falloff
+
+
+evaluate_cuda_frames.launches = 0

@@ -19,7 +19,7 @@ from facedeform_tpu_torch.config import (
 )
 from facedeform_tpu_torch.ops.assemble import assemble_rhs, assemble_system
 from facedeform_tpu_torch.ops.kernels import nearest_neighbor_dist
-from facedeform_tpu_torch.ops.solve import SolveReport, _lu_refined_impl
+from facedeform_tpu_torch.ops.solve import SolveReport, _lu_refined_impl, lu_factor_hp
 from facedeform_tpu_torch.utils import errors
 from facedeform_tpu_torch.utils.precision import highest_precision
 
@@ -137,6 +137,25 @@ def _lam_col(lam: torch.Tensor) -> torch.Tensor:
     return lam[:, None] if lam.ndim == 1 else lam
 
 
+def _check_dense_route(cfg: DeformConfig, n: int) -> RBFKernel:
+    """The effective kernel, or NotImplementedError for the routes not
+    ported yet: Krylov (n > 8192 or solver="krylov") and growing kernels
+    (double-float assembly)."""
+    kernel = effective_kernel(cfg)
+    if uses_krylov(cfg, n):
+        raise NotImplementedError(
+            f"the matrix-free Krylov route ({n} controls, solver="
+            f"{cfg.solver!r}) is not ported yet (ROADMAP queue 1, slice F: "
+            "ops/krylov.py)"
+        )
+    if kernel in GROWING_KERNELS:
+        raise NotImplementedError(
+            f"{kernel.name} fits need double-float assembly, not ported yet "
+            "(ROADMAP queue 1, slice C: precision for growing kernels)"
+        )
+    return kernel
+
+
 def fit(
     rest_ctrl: torch.Tensor,
     deformed_ctrl: torch.Tensor,
@@ -152,18 +171,7 @@ def fit(
     assembly) raise NotImplementedError until they are ported.
     """
     n = rest_ctrl.shape[0]
-    kernel = effective_kernel(cfg)
-    if uses_krylov(cfg, n):
-        raise NotImplementedError(
-            f"the matrix-free Krylov route ({n} controls, solver="
-            f"{cfg.solver!r}) is not ported yet (ROADMAP queue 1, slice F: "
-            "ops/krylov.py)"
-        )
-    if kernel in GROWING_KERNELS:
-        raise NotImplementedError(
-            f"{kernel.name} fits need double-float assembly, not ported yet "
-            "(ROADMAP queue 1, slice C: precision for growing kernels)"
-        )
+    kernel = _check_dense_route(cfg, n)
     params = params.clamped()
     rest_ctrl = rest_ctrl.float()
     delta = deformed_ctrl.float() - rest_ctrl
@@ -203,3 +211,123 @@ def fit(
         w_poly_lo=w_poly_lo,
     )
     return model, _worst_report(reports)
+
+
+def fit_frames_per_pose(
+    rest_ctrl: torch.Tensor,
+    deformed_frames: torch.Tensor,
+    cfg: DeformConfig,
+    params: DeformParams = DeformParams(),
+    confidence: Optional[torch.Tensor] = None,
+) -> tuple[RBFModel, torch.Tensor]:
+    """F poses of one rest rig, each solved as fit() solves it: the JAX
+    package's vmapped per-frame fit, with the frame axis written out.
+
+    The system depends on the rest rig only, so it is assembled once; each
+    pose factors its own copy of it (F batched LU factorizations) and
+    refines its own 3 columns.  Returns (model with w_rbf (F, L, N, 3),
+    w_poly (F, m, 3) and their lo words stacked the same way, per-frame
+    residual norms (F,) of each frame's worst layer)."""
+    n, f = rest_ctrl.shape[0], deformed_frames.shape[0]
+    kernel = _check_dense_route(cfg, n)
+    params = params.clamped()
+    rest_ctrl = rest_ctrl.float()
+    target = deformed_frames.float() - rest_ctrl[None]          # (F, N, 3)
+    eps0, lam0 = _family_radii(cfg, params, rest_ctrl, confidence)
+    dev = rest_ctrl.device
+    w_layers, w_lo_layers, eps_layers, reports = [], [], [], []
+    w_poly = torch.zeros((f, cfg.n_poly, 3), device=dev)
+    w_poly_lo = torch.zeros((f, cfg.n_poly, 3), device=dev)
+    for layer in range(cfg.n_layers):
+        eps_l = eps0 * (0.5 ** layer)
+        term = cfg.term if layer == 0 else PolyTerm.ZERO
+        a = assemble_system(rest_ctrl, kernel, term, eps_l, lam0)
+        lu_piv = lu_factor_hp(a.expand(f, *a.shape))
+        (x, x_lo), report, _ = _lu_refined_impl(
+            a, assemble_rhs(target, term), cfg.n_refine, want_lo=True, lu_piv=lu_piv)
+        w_l = x[:, :n]
+        w_layers.append(w_l)
+        w_lo_layers.append(x_lo[:, :n])
+        eps_layers.append(eps_l)
+        reports.append(report)
+        if layer == 0 and cfg.n_poly > 0:
+            w_poly, w_poly_lo = x[:, n:], x_lo[:, n:]
+        if layer + 1 < cfg.n_layers:
+            with highest_precision():
+                ax = a @ x
+            target = target - (ax[:, :n] - _lam_col(lam0) * w_l)
+    model = RBFModel(
+        ctrl=rest_ctrl.clone(),
+        w_rbf=torch.stack(w_layers, dim=1),
+        w_poly=w_poly,
+        eps=torch.stack(eps_layers),
+        w_rbf_lo=torch.stack(w_lo_layers, dim=1),
+        w_poly_lo=w_poly_lo,
+    )
+    # each frame reports its own worst layer, as _worst_report does per pose
+    errs = torch.stack([r.backward_error() for r in reports])       # (L, F)
+    resid = torch.stack([r.residual_norm for r in reports])         # (L, F)
+    return model, torch.gather(resid, 0, torch.argmax(errs, dim=0)[None])[0]
+
+
+def fit_frames_dense(
+    rest_ctrl: torch.Tensor,
+    deformed_frames: torch.Tensor,
+    cfg: DeformConfig,
+    params: DeformParams = DeformParams(),
+    confidence: Optional[torch.Tensor] = None,
+) -> tuple[RBFModel, torch.Tensor, SolveReport]:
+    """F-frame fit sharing ONE factorization per layer (dense route).
+
+    The saddle system depends only on the rest rig and the layer radius,
+    so every frame of a shot is 3 more right-hand-side columns: one
+    assembly, one LU and one refined solve of (N + m, 3F) per layer.
+    Returns (model with w_rbf (F, L, N, 3) and w_poly (F, m, 3), lo words
+    dropped as in the JAX package; per-frame residual norms (F,), each
+    frame's worst layer; the aggregate SolveReport of the worst layer).
+    """
+    n, f = rest_ctrl.shape[0], deformed_frames.shape[0]
+    kernel = _check_dense_route(cfg, n)
+    params = params.clamped()
+    rest_ctrl = rest_ctrl.float()
+    target = deformed_frames.float() - rest_ctrl[None]          # (F, N, 3)
+    eps0, lam0 = _family_radii(cfg, params, rest_ctrl, confidence)
+
+    def pack(t):      # (F, rows, 3) -> (rows, 3F)
+        return t.transpose(0, 1).reshape(t.shape[1], -1)
+
+    def unpack(x):    # (rows, 3F) -> (F, rows, 3)
+        return x.reshape(x.shape[0], f, 3).transpose(0, 1)
+
+    w_layers, eps_layers, reports, frame_resids = [], [], [], []
+    w_poly = torch.zeros((f, cfg.n_poly, 3), device=rest_ctrl.device)
+    for layer in range(cfg.n_layers):
+        eps_l = eps0 * (0.5 ** layer)
+        term = cfg.term if layer == 0 else PolyTerm.ZERO
+        a = assemble_system(rest_ctrl, kernel, term, eps_l, lam0)
+        b = pack(assemble_rhs(target, term))
+        (x, _), report, _ = _lu_refined_impl(a, b, cfg.n_refine, want_lo=True)
+        # per-frame residual norms from the per-column backward errors
+        # (||r_c|| = col_backward_c * col_scale_c), as the JAX package does
+        col_r = report.col_backward * (
+            torch.linalg.norm(a) * torch.linalg.norm(x, dim=0) + torch.linalg.norm(b, dim=0))
+        frame_resids.append(torch.sqrt(torch.sum(col_r.reshape(f, 3) ** 2, dim=1)))
+        x_f = unpack(x)                                          # (F, rows, 3)
+        w_l = x_f[:, :n]
+        w_layers.append(w_l)
+        eps_layers.append(eps_l)
+        reports.append(report)
+        if layer == 0 and cfg.n_poly > 0:
+            w_poly = x_f[:, n:]
+        if layer + 1 < cfg.n_layers:
+            with highest_precision():
+                ax = a @ x
+            target = target - (unpack(ax)[:, :n] - _lam_col(lam0) * w_l)
+    model = RBFModel(
+        ctrl=rest_ctrl.clone(),
+        w_rbf=torch.stack(w_layers, dim=1),
+        w_poly=w_poly,
+        eps=torch.stack(eps_layers),
+    )
+    resid = torch.amax(torch.stack(frame_resids), dim=0)
+    return model, resid, _worst_report(reports)

@@ -39,15 +39,17 @@ class SolveReport(NamedTuple):
 
 
 def _report_from(a_norm, lu_diag, x, b, r) -> SolveReport:
-    """Assemble the full report given the factor diagonal and residual."""
-    x_norm = torch.linalg.norm(x)
-    b_norm = torch.linalg.norm(b)
+    """Assemble the full report given the factor diagonal and residual.
+    Works with a leading batch axis on lu_diag/x/b/r (one report field
+    per system), as the JAX package's vmapped reports carry."""
+    x_norm = torch.linalg.norm(x, dim=(-2, -1))
+    b_norm = torch.linalg.norm(b, dim=(-2, -1))
     absd = torch.abs(lu_diag)
-    cond = torch.max(absd) / torch.clamp(torch.min(absd), min=1e-30)
-    col_scale = a_norm * torch.linalg.norm(x, dim=0) + torch.linalg.norm(b, dim=0)
-    col_back = torch.linalg.norm(r, dim=0) / torch.clamp(col_scale, min=1e-30)
+    cond = torch.amax(absd, dim=-1) / torch.clamp(torch.amin(absd, dim=-1), min=1e-30)
+    col_scale = a_norm[..., None] * torch.linalg.norm(x, dim=-2) + torch.linalg.norm(b, dim=-2)
+    col_back = torch.linalg.norm(r, dim=-2) / torch.clamp(col_scale, min=1e-30)
     return SolveReport(
-        residual_norm=torch.linalg.norm(r),
+        residual_norm=torch.linalg.norm(r, dim=(-2, -1)),
         rhs_norm=b_norm,
         scale_norm=a_norm * x_norm + b_norm,
         cond_est=cond,
@@ -90,6 +92,10 @@ def _lu_refined_impl(a, b, n_refine, want_lo, lu_piv=None):
     Folding each correction into an f32 x would re-round the solution every
     sweep and stall the forward error near u * cond; carrying (x_hi, x_lo)
     converges it to ~cond * u^2.  Returns ((x_hi, x_lo), report, (lu, piv)).
+
+    b may carry a leading batch axis (F, n, k) against one (n, n) system
+    a; lu_piv then holds F factorizations of a (the per-pose route of
+    fit_frames), and the report's fields carry the batch axis.
     """
     a = a.float()
     b = b.float()
@@ -108,7 +114,7 @@ def _lu_refined_impl(a, b, n_refine, want_lo, lu_piv=None):
     # of that f32 solution, not of the internal pair.
     r = _residual64(a64, x_hi, x_lo if want_lo else None, b64)
     report = _report_from(
-        torch.linalg.norm(a), torch.diagonal(lu), x_hi, b, r
+        torch.linalg.norm(a), torch.diagonal(lu, dim1=-2, dim2=-1), x_hi, b, r
     )
     if not want_lo:
         x_lo = torch.zeros_like(x_hi)

@@ -37,3 +37,12 @@ def project_to_tangents(u, v, n, disp: torch.Tensor) -> torch.Tensor:
     da1 = torch.sum(disp * a1, -1, keepdim=True)
     da2 = torch.sum(disp * a2, -1, keepdim=True)
     return a1 * da1 + a2 * da2
+
+
+def tangent_projection_matrix(u, v, n) -> torch.Tensor:
+    """Per-vertex matrix T with T @ d == project_to_tangents(u, v, n, d):
+    T = a1 a1^T + a2 a2^T, (V, 3, 3).  Composes the projection into the
+    displacement Jacobian (ops/jacobian.py), the frame attributes being
+    per-vertex data, not fields."""
+    a1, a2 = _projection_axes(u, v, n)
+    return a1[:, :, None] * a1[:, None, :] + a2[:, :, None] * a2[:, None, :]

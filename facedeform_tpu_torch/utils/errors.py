@@ -80,3 +80,31 @@ def check_solve(report, rtol: float = SOLVE_BACKWARD_RTOL) -> None:
             f"{res:.3e}, rhs {rhs:.3e}{cond_txt}) — singular or degenerate "
             "system (duplicate/coincident markers?)"
         )
+
+
+def check_frames(resid_norms, rest_ctrl, frames) -> None:
+    """Per-frame health check of a batched sequence fit (dense route).
+
+    parallel.batched.fit_frames returns per-frame residual norms only, so
+    this is check_solve's no-scale test frame by frame: the saddle RHS is
+    the displacement columns over zero tail rows, so ||rhs_f|| is
+    ||frames_f - rest||_F.  Raises SolveFailedError naming the bad frames,
+    so a degenerate rig never ships a NaN model stack."""
+    r = torch.as_tensor(resid_norms).detach().double().cpu().reshape(-1)
+    rest = torch.as_tensor(rest_ctrl).detach().double().cpu()
+    rhs = torch.linalg.norm(
+        torch.as_tensor(frames).detach().double().cpu() - rest[None], dim=(1, 2))
+    bad = ~torch.isfinite(r) | (
+        (rhs > 0) & (r > SOLVE_RESIDUAL_RTOL * torch.clamp(rhs, min=1e-30)))
+    if bool(bad.any()):
+        idx = torch.nonzero(bad).reshape(-1).tolist()
+        shown = ", ".join(str(i) for i in idx[:8])
+        more = f" (+{len(idx) - 8} more)" if len(idx) > 8 else ""
+        finite = torch.where(torch.isfinite(r[idx]), r[idx], torch.full_like(r[idx], math.inf))
+        worst = idx[int(torch.argmax(finite))]
+        raise SolveFailedError(
+            f"sequence RBF solve failed on frame(s) {shown}{more}: "
+            f"frame {worst} residual {float(r[worst]):.3e} vs rhs "
+            f"{float(rhs[worst]):.3e} (rtol {SOLVE_RESIDUAL_RTOL:g}) — singular "
+            "or ill-conditioned system"
+        )

@@ -1,4 +1,5 @@
-"""PyTorch port: importing the package pulls in no JAX and builds nothing."""
+"""PyTorch port: importing the package and every module of the port pulls
+in no JAX and builds nothing."""
 
 import subprocess
 import sys
@@ -12,10 +13,15 @@ def test_import_loads_no_jax_and_builds_nothing(tmp_path):
         "import sys, facedeform_tpu_torch\n"
         "import facedeform_tpu_torch.benchmark, facedeform_tpu_torch.convert\n"
         "import facedeform_tpu_torch.ops.cuda_eval as ce\n"
+        "import facedeform_tpu_torch.ops.cuda_jacobian as cj\n"
+        "import facedeform_tpu_torch.ops.jacobian, facedeform_tpu_torch.ops.temporal\n"
+        "import facedeform_tpu_torch.parallel.batched\n"
         "jax = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')]\n"
         "assert not jax, jax\n"
         "assert ce._lib is None\n"
         "assert (ce.evaluate_cuda.launches, ce.evaluate_cuda_culled.launches) == (0, 0)\n"
+        "assert ce.evaluate_cuda_frames.launches == 0\n"
+        "assert (cj.jacobian_cuda.launches, cj.jacobian_cuda_frames.launches) == (0, 0)\n"
     )
     build = REPO / "facedeform_tpu_torch" / "csrc" / "build"
     before = sorted(build.glob("*")) if build.exists() else []
