@@ -17,6 +17,12 @@
      chunk), a 33%-active folded weight;
    - Jacobian: single entry and F in {8, 9} (9 crosses the 8-frame launch
      chunk), plus a float64 central-difference check of J on 64 vertices;
+   - float64 precise eval: L in {1, 3}, strict_parity both ways, 33%
+     capture-active plus a group gate, lo words present and absent, plus
+     fitted TPS/MQ/linear/cubic models on which the f32 dense kernel must
+     miss the bound (so the bound tells float64 from f32);
+   - the custom-VJP eval (dense kernel forward, plain backward): gradients
+     w.r.t. w_rbf and points at 65536 x 1000, gaussian and TPS;
 4. runs slice A's main path at the headline size: Deformer.fit of 1000
    Fibonacci controls (default config), apply("auto") and
    apply(backend="cuda") on the 1M-vertex UV sphere, the localized
@@ -30,10 +36,21 @@
    Deformer.jacobian at 1M, with launch counters read around it; every
    frame is held against a single-pose Deformer on a 4096-vertex subset and
    two frames against a float64 oracle;
-6. times fit, each kernel and its plain version, the frames kernel against
-   8 dense launches, F = 8/11/16/17/32 per frame, and both fit_frames routes
-   (facedeform_tpu_torch.benchmark);
-7. prints a kernels JSON line, the card line, and as its last line
+6. runs slice C's main path, growing kernels at full width: TPS and MQ
+   Deformer.fit of 4096 Fibonacci controls (float64 assembly, GMRES-IR)
+   and apply("auto") on the 1M-vertex sphere with a capture d2, a tangent
+   frame and a group gate (one precise launch each), a 4-pose TPS shot
+   through batched.deform_frames (one precise launch per frame) and one
+   gradient through the custom-VJP eval, with launch counters read around
+   it; each apply's whole output, each shot frame and the gradient
+   against their plain twins, displacements against a float64 solve of
+   the same systems, each shot frame against the single-pose precise path;
+7. times fit, each kernel and its plain version, the frames kernel against
+   8 dense launches, F = 8/11/16/17/32 per frame, both fit_frames routes,
+   the precise kernel against its plain twin and the f32 dense kernel at
+   1M x 4096 and 1M x 1000, the float64-route fits at 4096 and the
+   custom-VJP eval's forward + backward (facedeform_tpu_torch.benchmark);
+8. prints a kernels JSON line, the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero.
@@ -70,6 +87,16 @@ JAC_FD_TOL = 2e-5
 # same weights to an ulp, same summation order
 FRAME_VS_SINGLE_TOL = 5e-6
 TRANSPORT_TOL = 1e-5      # transported normals, kernel vs plain Jacobian, x sigma_min
+# float64 precise kernel vs its float64 plain twin: both sum in double and
+# round once, so positions differ by about an f32 ulp of disp * weight
+PRECISE_POS_TOL = 2e-6
+# evaluate_cuda_diff gradients vs autograd through the plain twin, max|dg|
+# / max|g| (the JAX package's rtol; the cotangents differ by the forward's
+# f32 rounding)
+GRAD_RTOL = 1e-4
+# growing-kernel shot frames vs single-pose precise applies: one
+# factorization and one GMRES per pose in both, the same kernel
+SHOT_VS_SINGLE_TOL = 1e-6
 
 
 def _check(ok: bool, msg: str) -> None:
@@ -550,7 +577,7 @@ def main_path_frames(dev, label: str) -> dict:
 
 
 def time_kernels(main: dict, label: str) -> list:
-    """Phase 5a: each kernel and the plain version at the main path's
+    """Phase 7a: each kernel and the plain version at the main path's
     shapes (1M verts x 1k controls, all active)."""
     from facedeform_tpu_torch.benchmark import stats, time_cuda
     from facedeform_tpu_torch.config import PolyTerm, RBFKernel
@@ -591,7 +618,7 @@ def _fmt(name, t, extra=""):
 
 
 def time_frames(main_b: dict, label: str) -> list:
-    """Phase 6b: the frames and Jacobian kernels against their plain twins
+    """Phase 7b: the frames and Jacobian kernels against their plain twins
     at the slice B main path's shapes (1M verts x 1k controls), F = 8, 11,
     16, 17, 32 per frame through apply_frames, and both fit_frames routes at
     (1k controls, F = 8) and (4k, F = 32)."""
@@ -704,6 +731,438 @@ def time_frames(main_b: dict, label: str) -> list:
     ]
 
 
+def _with_lo(model, rng, dev):
+    """model with seeded lo words below half an ulp of its weights."""
+    from facedeform_tpu_torch.ops.fit import RBFModel
+
+    def lo(w):
+        u = rng.uniform(-1.0, 1.0, tuple(w.shape)).astype(np.float32)
+        return (w * torch.as_tensor(u, device=dev) * 2.0 ** -25).contiguous()
+
+    return RBFModel(ctrl=model.ctrl, w_rbf=model.w_rbf, w_poly=model.w_poly, eps=model.eps,
+                    w_rbf_lo=lo(model.w_rbf), w_poly_lo=lo(model.w_poly))
+
+
+def _fitted_model(n, kernel, rng, dev):
+    """Deformer.fit of n Fibonacci controls moved by 0.05 N(0, 1) (KERNEL
+    mode, radius 1, lam 0.01, linear tail) with its lo words: weights ~10
+    against displacements ~0.1, the cancellation the precise path exists
+    for, where an f32 evaluation misses PRECISE_POS_TOL by far."""
+    from facedeform_tpu_torch import DeformConfig, DeformParams, Deformer
+    from facedeform_tpu_torch.config import PolyTerm, RBFModelType
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points
+
+    rest = fibonacci_points(n)
+    deformed = rest + 0.05 * rng.standard_normal((n, 3)).astype(np.float32)
+    cfg = DeformConfig(model=RBFModelType.KERNEL, kernel=kernel, term=PolyTerm.LINEAR,
+                       solver="direct")
+    return Deformer.fit(rest, deformed, cfg, DeformParams(radius=1.0, lam=0.01),
+                        device=dev).model
+
+
+def _without_lo(model):
+    from facedeform_tpu_torch.ops.fit import RBFModel
+
+    return RBFModel(ctrl=model.ctrl, w_rbf=model.w_rbf, w_poly=model.w_poly, eps=model.eps)
+
+
+def check_precise_kernel(dev) -> float:
+    """Phase 3d: the float64 precise kernel against its plain twin on
+    synthetic models (all 7 bases, L in {1, 3}, N in {1000, 2500}) and on
+    fitted growing-kernel models (N in {1000, 2500}), at ragged V = 70002,
+    with and without a tangent frame, strict_parity both ways, 33%
+    capture-active plus a group gate, lo words present and absent.  On the
+    fitted models the bound is shown to tell float64 from f32: the f32
+    dense kernel misses it on every model, dropping the lo words on some;
+    returns the worst |dpos|."""
+    from facedeform_tpu_torch.config import PolyTerm, RBFKernel
+    from facedeform_tpu_torch.ops import cuda_eval, cuda_precise
+    from facedeform_tpu_torch.ops.fit import GROWING_KERNELS
+
+    rng = np.random.default_rng(4)
+    pts, frame = _ragged_points(dev, rng)
+    v = pts.shape[0]
+    dist2 = torch.sum((pts - torch.tensor([0.0, 1.05, 0.0], device=dev)) ** 2, -1)
+    radius = float(torch.quantile(dist2, 0.33).sqrt())       # 33% active
+    dist2[::97] = -1.0                                       # strict-parity sentinel
+    gate = (pts[:, 0] > -0.6).float()                        # a group gate
+    cases = []                                               # (name, kernel, models, fitted)
+    for n in (1000, 2500):
+        for n_layers in (1, 3):
+            for kernel in RBFKernel:
+                base = _synthetic_model(n, n_layers, kernel, rng, dev)
+                cases.append((f"N={n} L={n_layers} {kernel.name}", kernel,
+                              (base, _with_lo(base, rng, dev)), False))
+        for kernel in GROWING_KERNELS:
+            fitted = _fitted_model(n, kernel, rng, dev)
+            cases.append((f"fitted N={n} {kernel.name}", kernel,
+                          (fitted, _without_lo(fitted)), True))
+    worst, n_cases, worst_no_lo = [0.0, 0.0], 0, 0.0
+    for name, kernel, models, fitted in cases:
+        group = [0.0, 0.0]
+        for model in models:
+            for with_frame in (False, True):
+                for strict in (False, True):
+                    args = (model, pts, dist2, gate, radius, 1.5, kernel, PolyTerm.LINEAR)
+                    kw = dict(strict_parity=strict, frame=frame if with_frame else None)
+                    want_p, want_w = cuda_precise.evaluate_precise_reference(*args, **kw)
+                    got_p, got_w = cuda_precise.evaluate_cuda_precise(*args, **kw)
+                    torch.cuda.synchronize()
+                    dp = float(torch.max(torch.abs(got_p - want_p)))
+                    dw = float(torch.max(torch.abs(got_w - want_w)))
+                    still = got_w == 0
+                    pinned = bool(torch.equal(got_p[still], pts[still]))
+                    _check(
+                        dp <= PRECISE_POS_TOL and dw <= FALLOFF_TOL and pinned,
+                        f"precise {name} lo={model.w_rbf_lo is not None} frame={with_frame} "
+                        f"strict={strict}: |dpos| {dp:.3e} (tol {PRECISE_POS_TOL:g}), "
+                        f"|dfalloff| {dw:.3e}, zero-weight rows pinned {pinned}",
+                    )
+                    group = [max(group[0], dp), max(group[1], dw)]
+                    n_cases += 1
+        worst = [max(worst[0], group[0]), max(worst[1], group[1])]
+        extra = ""
+        if fitted:
+            # the whole field, every vertex active: f32 arithmetic (the f32
+            # dense kernel) and dropping the lo words against the twin
+            full = (pts, torch.zeros(v, device=dev), torch.ones(v, device=dev), 1.0, 1.0,
+                    kernel, PolyTerm.LINEAR)
+            want, _ = cuda_precise.evaluate_precise_reference(models[0], *full)
+            f32 = float(torch.max(torch.abs(cuda_eval.evaluate_cuda(models[0], *full)[0] - want)))
+            no_lo = float(torch.max(torch.abs(
+                cuda_precise.evaluate_precise_reference(models[1], *full)[0] - want)))
+            worst_no_lo = max(worst_no_lo, no_lo)
+            _check(f32 > PRECISE_POS_TOL,
+                   f"precise {name}: the f32 dense kernel lies within {PRECISE_POS_TOL:g} of "
+                   f"the float64 twin ({f32:.3e}), so the bound cannot tell f32 from float64")
+            extra = f"; f32 dense kernel {f32:.3e}, lo words dropped {no_lo:.3e} off"
+        print(f"  precise {name:28s} max|dpos| {group[0]:.3e} max|dfalloff| "
+              f"{group[1]:.3e}{extra}", flush=True)
+    _check(worst_no_lo > PRECISE_POS_TOL,
+           f"dropping the lo words moves no fitted field past {PRECISE_POS_TOL:g} "
+           f"({worst_no_lo:.3e}), so the bound cannot tell a kernel that ignores them")
+    print(f"precise kernel checks: {n_cases} cases within tolerance (positions "
+          f"{PRECISE_POS_TOL:g}, falloff {FALLOFF_TOL:g}, zero-weight rows equal to the "
+          f"input); worst |dpos| {worst[0]:.3e}, |dfalloff| {worst[1]:.3e}; on the fitted "
+          f"models the f32 dense kernel misses the bound on every model and dropping the "
+          f"lo words on at least one (worst {worst_no_lo:.3e})", flush=True)
+    return worst[0]
+
+
+def _grads(fn, model, pts, kernel, dist2=None, gate=None, cot=None):
+    """(d sum(out^2) / d(w_rbf, points), out) through fn (evaluate_cuda_diff's
+    argument order), radius = rate = 1; all vertices active unless a
+    capture dist2 / gate is given.  cot replaces the cotangent 2 out."""
+    from facedeform_tpu_torch.config import PolyTerm
+    from facedeform_tpu_torch.ops.fit import RBFModel
+
+    w = model.w_rbf.detach().clone().requires_grad_()
+    p = pts.detach().clone().requires_grad_()
+    v = pts.shape[0]
+    dist2 = torch.zeros(v, device=pts.device) if dist2 is None else dist2
+    gate = torch.ones(v, device=pts.device) if gate is None else gate
+    out, _ = fn(RBFModel(ctrl=model.ctrl, w_rbf=w, w_poly=model.w_poly, eps=model.eps), p,
+                dist2, gate, 1.0, 1.0, None, kernel, PolyTerm.LINEAR)
+    cot = 2.0 * out.detach() if cot is None else cot
+    return torch.autograd.grad(out, (w, p), grad_outputs=cot), out.detach()
+
+
+def _grad_rel_errs(got, want) -> list:
+    """Normwise relative gradient errors max|dg| / max|g|, one per input."""
+    return [float(torch.max(torch.abs(g - h)) / torch.max(torch.abs(h)))
+            for g, h in zip(got, want)]
+
+
+def _plain_diff(model, points, dist2, gate, radius, rate, frame, kernel, term):
+    from facedeform_tpu_torch.ops import cuda_eval
+
+    return cuda_eval.evaluate_reference(model, points, dist2, gate, radius, rate, kernel,
+                                        term, frame=frame)
+
+
+def check_diff_kernel(dev) -> float:
+    """Phase 3e: evaluate_cuda_diff (dense kernel forward, plain backward)
+    against autograd through the plain twin at 65536 x 1000, gaussian and
+    TPS: gradients w.r.t. w_rbf and points; returns the worst normwise
+    relative error max|dg| / max|g|."""
+    from facedeform_tpu_torch.config import RBFKernel
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points
+    from facedeform_tpu_torch.ops import cuda_eval
+
+    rng = np.random.default_rng(5)
+    pts = torch.as_tensor(fibonacci_points(65536) * 1.05, device=dev)
+    worst = 0.0
+    for kernel in (RBFKernel.GAUSSIAN, RBFKernel.THIN_PLATE):
+        model = _synthetic_model(1000, 1, kernel, rng, dev)
+        got, _ = _grads(cuda_eval.evaluate_cuda_diff, model, pts, kernel)
+        want, _ = _grads(_plain_diff, model, pts, kernel)
+        torch.cuda.synchronize()
+        errs = _grad_rel_errs(got, want)
+        _check(max(errs) <= GRAD_RTOL and all(bool(torch.isfinite(g).all()) for g in got),
+               f"diff {kernel.name}: relative |dgrad| w_rbf {errs[0]:.3e}, points "
+               f"{errs[1]:.3e} (tol {GRAD_RTOL:g})")
+        worst = max(worst, *errs)
+        print(f"  diff {kernel.name:20s} 65536 x 1000: max|dg|/max|g| w_rbf {errs[0]:.3e}, "
+              f"points {errs[1]:.3e}", flush=True)
+    print(f"diff (custom-VJP) checks: gradients within {GRAD_RTOL:g} normwise of autograd "
+          f"through the plain twin; worst {worst:.3e}", flush=True)
+    return worst
+
+
+def _phi64(kernel, d2, eps):
+    """TPS or MQ phi of squared distances in float64, written out."""
+    from facedeform_tpu_torch.config import RBFKernel
+
+    s = d2 / (eps * eps)
+    if kernel == RBFKernel.THIN_PLATE:
+        return torch.where(s > 0, 0.5 * s * torch.log(torch.clamp(s, min=1e-300)),
+                           torch.zeros_like(s))
+    _check(kernel == RBFKernel.MULTIQUADRIC, f"no oracle phi for {kernel.name}")
+    return torch.sqrt(1.0 + s)
+
+
+def _oracle_kernel_disp(rest, deformed, pts, kernel, eps, lam):
+    """Float64 KERNEL-mode fit (global radius, ridge, linear tail, the
+    -1e-8 tail block) and field, written out independently of the port."""
+    ctrl = rest.double()
+    n = ctrl.shape[0]
+    d2 = ((ctrl[:, None] - ctrl[None]) ** 2).sum(-1)
+    ones = torch.ones(n, 1, dtype=ctrl.dtype, device=ctrl.device)
+    p = torch.cat([ones, ctrl], 1)
+    a = torch.zeros(n + 4, n + 4, dtype=ctrl.dtype, device=ctrl.device)
+    a[:n, :n] = _phi64(kernel, d2, eps) + lam * torch.eye(n, dtype=ctrl.dtype,
+                                                          device=ctrl.device)
+    a[:n, n:] = p
+    a[n:, :n] = p.T
+    a[n:, n:] = -1e-8 * torch.eye(4, dtype=ctrl.dtype, device=ctrl.device)
+    b = torch.cat([deformed.double() - ctrl, torch.zeros(4, 3, dtype=ctrl.dtype,
+                                                          device=ctrl.device)])
+    x = torch.linalg.solve(a, b)
+    q = pts.double()
+    dq = ((q[:, None] - ctrl[None]) ** 2).sum(-1)
+    pq = torch.cat([torch.ones(len(q), 1, dtype=q.dtype, device=q.device), q], 1)
+    return _phi64(kernel, dq, eps) @ x[:n] + pq @ x[n:]
+
+
+def main_path_precise(dev, label: str) -> dict:
+    """Phase 6: slice C's main path at full width, growing kernels: TPS and
+    MQ Deformer.fit of 4096 controls and apply("auto") on the 1M-vertex
+    sphere with a capture d2, a tangent frame and a group gate; a 4-pose
+    TPS shot through batched.deform_frames; one gradient through
+    evaluate_cuda_diff; with launch counters read around it, float64
+    oracles and single-pose cross-checks."""
+    from facedeform_tpu_torch import DeformConfig, DeformParams, Deformer
+    from facedeform_tpu_torch.config import PolyTerm, RBFKernel, RBFModelType
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points, uv_sphere
+    from facedeform_tpu_torch.ops import cuda_eval, cuda_precise
+    from facedeform_tpu_torch.parallel import batched
+
+    rng = np.random.default_rng(0)
+    n_ctrl, n_frames = 4096, 4
+    rest = fibonacci_points(n_ctrl)
+    deformed = rest + 0.05 * rng.standard_normal((n_ctrl, 3)).astype(np.float32)
+    shot = rest + 0.05 * rng.standard_normal((n_frames, n_ctrl, 3)).astype(np.float32)
+    params = DeformParams(radius=1.0, lam=0.01)
+    cfgs = {k: DeformConfig(model=RBFModelType.KERNEL, kernel=k, term=PolyTerm.LINEAR,
+                            solver="direct", tangent=True)
+            for k in (RBFKernel.THIN_PLATE, RBFKernel.MULTIQUADRIC)}
+    pts = torch.as_tensor(uv_sphere(1000, 1000).points, device=dev)
+    v = pts.shape[0]
+    cap_d2 = torch.sum((pts - torch.tensor([0.0, 1.0, 0.0], device=dev)) ** 2, -1)
+    mask = pts[:, 0] > -0.6
+    frame = _sphere_frame(pts)
+    n_diff = 65536
+
+    counters = (cuda_precise.evaluate_cuda_precise, cuda_eval.evaluate_cuda_diff)
+    for fn in counters:
+        fn.launches = 0
+    per_apply = {}
+    deformers, outs = {}, {}
+    t0 = time.perf_counter()
+    for kernel, cfg in cfgs.items():
+        before = cuda_precise.evaluate_cuda_precise.launches
+        deformers[kernel] = Deformer.fit(rest, deformed, cfg, params, device=dev)
+        outs[kernel] = deformers[kernel].apply(pts, dist2=cap_d2, frame=frame, group_mask=mask)
+        per_apply[kernel.name] = cuda_precise.evaluate_cuda_precise.launches - before
+    shot_out, shot_w = batched.deform_frames(rest, shot, pts, cap_d2, mask.float(),
+                                             cfgs[RBFKernel.THIN_PLATE], params, frame=frame,
+                                             device=dev)
+    tps = deformers[RBFKernel.THIN_PLATE]
+    grad_args = (tps.model, pts[:n_diff], RBFKernel.THIN_PLATE, cap_d2[:n_diff],
+                 mask[:n_diff].float())
+    grads, grad_out = _grads(cuda_eval.evaluate_cuda_diff, *grad_args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"slice C main path: {wall:.3f} s wall (TPS and MQ fits of {n_ctrl} controls, "
+          f"apply('auto') at {v} verts, a {n_frames}-pose TPS shot, one gradient at "
+          f"{n_diff} verts); launches {launches}, precise per apply('auto') {per_apply}  "
+          f"[{label}]", flush=True)
+    _check(all(c == 1 for c in per_apply.values()),
+           f"apply('auto') must launch the precise kernel exactly once: {per_apply}")
+    _check(launches["evaluate_cuda_precise"] == 2 + n_frames,
+           "the shot did not take one precise launch per frame")
+    _check(launches["evaluate_cuda_diff"] == 1,
+           "the gradient must launch evaluate_cuda_diff's kernel exactly once")
+    _check(all(bool(torch.isfinite(g).all()) for g in grads), "gradients not finite")
+    # the forward is kernel #1's output; the backward is the plain twin's
+    # VJP on the same inputs at that output's cotangent.  (Against autograd
+    # of the plain forward, the f32 forward's own error on this fitted TPS
+    # model, ~2e-4 from float64, would be what is compared.)
+    fwd_equal = bool(torch.equal(grad_out, cuda_eval.evaluate_cuda(
+        tps.model, pts[:n_diff].contiguous(), cap_d2[:n_diff].contiguous(),
+        mask[:n_diff].float(), 1.0, 1.0, RBFKernel.THIN_PLATE, PolyTerm.LINEAR)[0]))
+    plain, _ = _grads(_plain_diff, *grad_args, cot=2.0 * grad_out)
+    grad_errs = _grad_rel_errs(grads, plain)
+    print(f"main-path gradient (TPS {n_diff} x {n_ctrl}, capture d2 and group gate): forward "
+          f"equal to the dense kernel's {fwd_equal}; vs the plain twin's VJP at the same "
+          f"cotangent max|dg|/max|g| w_rbf {grad_errs[0]:.3e}, points {grad_errs[1]:.3e} "
+          f"(tol {GRAD_RTOL:g})")
+    _check(fwd_equal and max(grad_errs) <= GRAD_RTOL,
+           "the main-path gradient disagrees with the plain twin")
+
+    idx = torch.linspace(0, v - 1, 4096, device=dev).long()
+    sub_frame = tuple(f[idx] for f in frame)
+    w64 = torch.clamp(1.0 - torch.clamp(cap_d2[idx].double(), 0.0, 1.0), min=0.0) * mask[idx]
+    errs = {}
+    for kernel, d in deformers.items():
+        be = float(d.report.backward_error())
+        out, w = outs[kernel]
+        print(f"{kernel.name} fit@{n_ctrl}: backward error {be:.3e} (cond est "
+              f"{float(d.report.cond_est):.3e})")
+        _check(be <= BACKWARD_TOL, f"{kernel.name} backward error {be:.3e} > {BACKWARD_TOL:g}")
+        _check(tuple(out.shape) == (v, 3) and bool(torch.isfinite(out).all()),
+               f"{kernel.name} output not finite of shape (V, 3)")
+        _check(bool(torch.equal(out[~mask], pts[~mask])), f"{kernel.name}: gated rows moved")
+        # the kernel's whole output against its plain twin on the same inputs
+        cfg, prm = d.cfg, d.params.clamped()
+        want_p, want_w = cuda_precise.evaluate_precise_reference(
+            d.model, pts, cap_d2, mask.float(), prm.radius, prm.falloffrate, kernel, cfg.term,
+            strict_parity=cfg.strict_parity, frame=frame)
+        dp = float(torch.max(torch.abs(out - want_p)))
+        dw = float(torch.max(torch.abs(w - want_w)))
+        print(f"{kernel.name} apply('auto') at {v} x {n_ctrl} vs the plain twin: max |dpos| "
+              f"{dp:.3e} (tol {PRECISE_POS_TOL:g}), max |dfalloff| {dw:.3e} "
+              f"(tol {FALLOFF_TOL:g})")
+        _check(dp <= PRECISE_POS_TOL and dw <= FALLOFF_TOL,
+               f"{kernel.name} apply('auto') disagrees with the plain twin")
+        disp = _oracle_kernel_disp(torch.as_tensor(rest, device=dev),
+                                   torch.as_tensor(deformed, device=dev), pts[idx], kernel,
+                                   1.0, 0.01)
+        want = _project64(sub_frame, disp) * w64[:, None]
+        errs[kernel.name] = float(torch.max(torch.abs((out[idx] - pts[idx]).double() - want)))
+        print(f"oracle ({kernel.name} 1M x {n_ctrl}, 4096-vertex subset): max displacement "
+              f"error {errs[kernel.name]:.3e} (budget {ORACLE_BUDGET:g})")
+        _check(errs[kernel.name] <= ORACLE_BUDGET, f"{kernel.name} misses the oracle budget")
+
+    # each shot frame against the single-pose precise kernel path
+    _check(tuple(shot_out.shape) == (n_frames, v, 3) and bool(torch.isfinite(shot_out).all()),
+           "shot output not finite of shape (F, V, 3)")
+    worst, worst_twin = 0.0, 0.0
+    cfg = cfgs[RBFKernel.THIN_PLATE]
+    prm = params.clamped()
+    for f in range(n_frames):
+        d = Deformer.fit(rest, shot[f], cfg, params, device=dev)
+        single, single_w = d.apply(pts[idx], dist2=cap_d2[idx], frame=sub_frame,
+                                   group_mask=mask[idx], backend="cuda_precise")
+        worst = max(worst, float(torch.max(torch.abs(shot_out[f, idx] - single))))
+        _check(bool(torch.equal(single_w, shot_w[idx])), f"shot frame {f}: falloff differs")
+        twin, _ = cuda_precise.evaluate_precise_reference(
+            d.model, pts[idx], cap_d2[idx], mask[idx].float(), prm.radius, prm.falloffrate,
+            RBFKernel.THIN_PLATE, cfg.term, strict_parity=cfg.strict_parity, frame=sub_frame)
+        worst_twin = max(worst_twin, float(torch.max(torch.abs(shot_out[f, idx] - twin))))
+    print(f"TPS shot frames vs single-pose Deformer.apply(backend='cuda_precise'), "
+          f"4096-vertex subset: max |d| {worst:.3e} (tol {SHOT_VS_SINGLE_TOL:g}); vs the "
+          f"single-pose model's plain twin {worst_twin:.3e} (tol {PRECISE_POS_TOL:g})")
+    _check(worst <= SHOT_VS_SINGLE_TOL, "a shot frame disagrees with the single-pose path")
+    _check(worst_twin <= PRECISE_POS_TOL, "a shot frame disagrees with the plain twin")
+    return {"launches": launches, "deformers": deformers, "points": pts, "rest": rest,
+            "deformed": deformed, "params": params, "cfgs": cfgs}
+
+
+def time_precise(main_c: dict, label: str) -> list:
+    """Phase 7c: the precise kernel against its plain twin and against the
+    f32 dense kernel on the same TPS model, at 1M x 4096 and 1M x 1000;
+    Deformer.fit at 4096 (TPS, MQ); #4 forward + backward against autograd
+    through the plain twin at 65536 x 1000."""
+    from facedeform_tpu_torch import Deformer
+    from facedeform_tpu_torch.benchmark import stats, time_cuda
+    from facedeform_tpu_torch.config import PolyTerm, RBFKernel
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points
+    from facedeform_tpu_torch.ops import cuda_eval, cuda_precise
+    from facedeform_tpu_torch.ops import fit as fit_mod
+
+    pts, params, cfgs = main_c["points"], main_c["params"], main_c["cfgs"]
+    dev = pts.device
+    v = pts.shape[0]
+    d2 = torch.zeros(v, device=dev)
+    gate = torch.ones(v, device=dev)
+    tps = RBFKernel.THIN_PLATE
+    cfg = cfgs[tps]
+    rng = np.random.default_rng(6)
+    r1k = fibonacci_points(1000)
+    d1k = Deformer.fit(r1k, r1k + 0.05 * rng.standard_normal((1000, 3)).astype(np.float32),
+                       cfg, params, device=dev)
+    res = {}
+    for n_ctrl, model in ((4096, main_c["deformers"][tps].model), (1000, d1k.model)):
+        args = (model, pts, d2, gate, 1.0, 1.0, tps, PolyTerm.LINEAR)
+        fns = {"precise": lambda: cuda_precise.evaluate_cuda_precise(*args),
+               "f32 dense": lambda: cuda_eval.evaluate_cuda(*args),
+               "precise plain": lambda: cuda_precise.evaluate_precise_reference(*args)}
+        t = {k: stats(x) for k, x in time_cuda(fns, rounds=3, iters={
+            "precise": 5, "f32 dense": 5, "precise plain": 1}).items()}
+        want, _ = cuda_precise.evaluate_precise_reference(*args)
+        err = float(torch.max(torch.abs(fns["precise"]()[0] - want)))
+        _check(err <= PRECISE_POS_TOL,
+               f"precise kernel at {v} x {n_ctrl}: |dpos| {err:.3e} vs the plain twin")
+        for k, x in t.items():
+            print(_fmt(f"{k} (TPS)", x, f" at {v} x {n_ctrl}  [{label}]"))
+        print(f"precise kernel at {v} x {n_ctrl}: {t['precise plain'][0] / t['precise'][0]:.2f}x "
+              f"the plain twin, {t['precise'][0] / t['f32 dense'][0]:.3f}x the f32 dense "
+              f"kernel's time; max |d| vs twin {err:.3e}")
+        res[n_ctrl] = (t, err)
+
+    r_dev = torch.as_tensor(main_c["rest"], device=dev)
+    f_dev = torch.as_tensor(main_c["deformed"], device=dev)
+    fits = {f"fit {k.name}": (lambda c=c: fit_mod.fit(r_dev, f_dev, c, params))
+            for k, c in cfgs.items()}
+    for k, x in time_cuda(fits, rounds=3, iters=1).items():
+        print(_fmt(k, stats(x), f" at {r_dev.shape[0]} controls (float64 assembly, "
+                                f"GMRES-IR)  [{label}]"))
+
+    # #4: forward + backward at 65536 x 1000, gaussian
+    from facedeform_tpu_torch.ops.fit import RBFModel
+
+    sub = pts[:65536].contiguous()
+    gmodel = RBFModel(ctrl=d1k.model.ctrl, w_rbf=d1k.model.w_rbf,
+                      w_poly=d1k.model.w_poly, eps=d1k.model.eps * 0.3)
+    gauss = RBFKernel.GAUSSIAN
+    dfns = {"diff fwd+bwd": lambda: _grads(cuda_eval.evaluate_cuda_diff, gmodel, sub, gauss),
+            "plain fwd+bwd": lambda: _grads(_plain_diff, gmodel, sub, gauss)}
+    dt = {k: stats(x) for k, x in time_cuda(dfns, rounds=3, iters=3).items()}
+    got, want = dfns["diff fwd+bwd"]()[0], dfns["plain fwd+bwd"]()[0]
+    err_diff = max(float(torch.max(torch.abs(g - h))) for g, h in zip(got, want))
+    rel_diff = _grad_rel_errs(got, want)
+    print(f"diff at 65536 x 1000 (gaussian): max |dg| {err_diff:.3e}, max|dg|/max|g| "
+          f"w_rbf {rel_diff[0]:.3e}, points {rel_diff[1]:.3e} (tol {GRAD_RTOL:g})")
+    _check(max(rel_diff) <= GRAD_RTOL, "timed diff gradients disagree with the plain twin")
+    for k, x in dt.items():
+        print(_fmt(k, x, f" (gaussian) at 65536 x 1000  [{label}]"))
+    t4k, e4k = res[4096]
+    return [
+        {"name": "eval_precise", "route": "cuda",
+         "source": "facedeform_tpu_torch/csrc/precise.cu",
+         "replaces": "facedeform_tpu/ops/pallas_precise.py:231",
+         "launches": main_c["launches"]["evaluate_cuda_precise"], "max_abs_err": e4k,
+         "ms": t4k["precise"][0], "plain_ms": t4k["precise plain"][0]},
+        {"name": "eval_diff", "route": "cuda",
+         "source": "facedeform_tpu_torch/csrc/eval.cu",
+         "replaces": "facedeform_tpu/ops/pallas_eval.py:920",
+         "launches": main_c["launches"]["evaluate_cuda_diff"], "max_abs_err": err_diff,
+         "ms": dt["diff fwd+bwd"][0], "plain_ms": dt["plain fwd+bwd"][0]},
+    ]
+
+
 def _ptxas_summary(log: str) -> list:
     """One line per compiled kernel: name<template args>, registers, spills."""
     lines, name = [], None
@@ -746,9 +1205,13 @@ def main() -> int:
     check_kernels(dev)
     check_frames_kernel(dev)
     check_jacobian_kernel(dev)
+    check_precise_kernel(dev)
+    check_diff_kernel(dev)
     main = main_path(dev, label)
     main_b = main_path_frames(dev, label)
-    kernels = time_kernels(main, label) + time_frames(main_b, label)
+    main_c = main_path_precise(dev, label)
+    kernels = (time_kernels(main, label) + time_frames(main_b, label)
+               + time_precise(main_c, label))
     record = benchmark.run_headline()
     print("headline:", json.dumps(record), flush=True)
 

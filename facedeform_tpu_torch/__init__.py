@@ -9,9 +9,10 @@ Same math and public names as the JAX package (which stays the reference):
   parallel.batched             — the animated shot: fit_frames ->
                                  apply_frames -> transport_frames
   ops.temporal                 — Savitzky-Golay rig smoothing of a shot
-The GPU kernels (dense, culled and frames eval, Jacobian) are CUDA C++ in
-csrc/, compiled for sm_90a at first use (ops/cuda_eval.py); importing the
-package builds nothing and imports no JAX.
+The GPU kernels (dense, culled and frames eval, Jacobian, and the float64
+precise eval of the growing kernels) are CUDA C++ in csrc/, compiled for
+sm_90a at first use (ops/cuda_eval.py); importing the package builds
+nothing and imports no JAX.
 """
 
 from facedeform_tpu_torch.config import (

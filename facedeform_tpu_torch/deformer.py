@@ -14,29 +14,23 @@ import dataclasses
 import torch
 
 from facedeform_tpu_torch.config import DeformConfig, DeformParams
-from facedeform_tpu_torch.ops import cuda_eval, cuda_jacobian
+from facedeform_tpu_torch.ops import cuda_eval, cuda_jacobian, cuda_precise
 from facedeform_tpu_torch.ops import fit as fit_mod
 from facedeform_tpu_torch.ops import jacobian as jac_mod
 from facedeform_tpu_torch.ops.evaluate import evaluate
 from facedeform_tpu_torch.ops.falloff import falloff_weight
-from facedeform_tpu_torch.ops.fit import GROWING_KERNELS, RBFModel
+from facedeform_tpu_torch.ops.fit import RBFModel
 from facedeform_tpu_torch.ops.kernels import kernel_is_pd
+from facedeform_tpu_torch.ops.precise_eval import GROWING_KERNELS, evaluate_precise
 from facedeform_tpu_torch.ops.solve import SolveReport
 from facedeform_tpu_torch.ops.tangent import project_to_tangents
 from facedeform_tpu_torch.utils import errors
 
-_BACKENDS = ("dense", "cuda", "cuda_culled")
+_BACKENDS = ("dense", "dense_precise", "cuda", "cuda_culled", "cuda_precise")
 
 # The culled kernel needs enough vertex blocks for coherent bboxes to pay
 # for the slab tests (the JAX package's measured crossover).
 _CULL_MIN_VERTS = 4096
-
-
-def _precise_not_ported(kernel) -> NotImplementedError:
-    return NotImplementedError(
-        f"{kernel.name} is a growing kernel: its eval needs the double-float "
-        "precise path, not ported yet (ROADMAP queue 1, slice C)"
-    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,12 +93,11 @@ class Deformer:
         return torch.as_tensor(points, dtype=torch.float32, device=self.model.device)
 
     def displacement(self, points) -> torch.Tensor:
-        """Raw RBF displacement field at points (V, 3) -> (V, 3), decaying
-        kernels only (growing kernels need the precise path)."""
+        """Raw RBF displacement field at points (V, 3) -> (V, 3); growing
+        kernels evaluate in float64 (ops/precise_eval), as apply() does."""
         kernel = fit_mod.effective_kernel(self.cfg)
-        if kernel in GROWING_KERNELS:
-            raise _precise_not_ported(kernel)
-        return evaluate(self.model, self._points(points), kernel, self.cfg.term)
+        fn = evaluate_precise if kernel in GROWING_KERNELS else evaluate
+        return fn(self.model, self._points(points), kernel, self.cfg.term)
 
     def jacobian(self, points) -> torch.Tensor:
         """Spatial Jacobian of the displacement field at points, (V, 3, 3):
@@ -159,10 +152,14 @@ class Deformer:
         everything deforms fully, reference quirk 1).  frame: optional
         (u, v, n) tangent attributes, used when cfg.tangent.  group_mask:
         optional (V,) bool point-group restriction; masked-out points are
-        returned exactly.  backend: "auto" takes the culled CUDA kernel for
-        gaussian/Wendland at V >= 4096 and the dense CUDA kernel otherwise
-        on a CUDA model, the plain "dense" path on a CPU model; "dense",
-        "cuda" and "cuda_culled" force a path.
+        returned exactly.  backend: "auto" takes, on a CUDA model, the
+        float64 precise kernel for growing kernels (TPS/MQ/linear/cubic),
+        the culled CUDA kernel for gaussian/Wendland at V >= 4096 and the
+        dense CUDA kernel otherwise; on a CPU model the plain
+        "dense_precise" path for growing kernels and "dense" otherwise.
+        "dense", "dense_precise", "cuda", "cuda_culled" and "cuda_precise"
+        force a path ("dense"/"cuda" on a growing kernel evaluate the f32
+        field, as in the JAX package).
         """
         points = self._points(points)
         dev = points.device
@@ -182,9 +179,10 @@ class Deformer:
         kernel = fit_mod.effective_kernel(self.cfg)
         if backend == "auto":
             if kernel in GROWING_KERNELS:
-                # the JAX package routes these to its double-float path
-                raise _precise_not_ported(kernel)
-            if dev.type != "cuda":
+                # f32 breaks the 5e-5 budget for these well below
+                # production sizes: the float64 path, kernel or plain twin
+                backend = "cuda_precise" if dev.type == "cuda" else "dense_precise"
+            elif dev.type != "cuda":
                 backend = "dense"
             elif cuda_eval.kernel_is_cullable(kernel) and v >= _CULL_MIN_VERTS:
                 backend = "cuda_culled"
@@ -194,11 +192,12 @@ class Deformer:
             # a typo must not fall through to some other path
             raise ValueError(
                 f"unknown backend {backend!r}; expected 'auto', 'dense', "
-                "'cuda' or 'cuda_culled'"
+                "'dense_precise', 'cuda', 'cuda_culled' or 'cuda_precise'"
             )
         params = self.params.clamped()
-        if backend == "dense":
-            disp = evaluate(self.model, points, kernel, self.cfg.term)
+        if backend in ("dense", "dense_precise"):
+            fn = evaluate_precise if backend == "dense_precise" else evaluate
+            disp = fn(self.model, points, kernel, self.cfg.term)
             if frame is not None:
                 disp = project_to_tangents(*frame, disp)
             w, active = falloff_weight(
@@ -213,7 +212,8 @@ class Deformer:
             group_mask.float() if group_mask is not None
             else torch.ones(v, dtype=torch.float32, device=dev)
         )
-        fn = cuda_eval.evaluate_cuda_culled if backend == "cuda_culled" else cuda_eval.evaluate_cuda
+        fn = {"cuda": cuda_eval.evaluate_cuda, "cuda_culled": cuda_eval.evaluate_cuda_culled,
+              "cuda_precise": cuda_precise.evaluate_cuda_precise}[backend]
         new_pts, w = fn(
             self.model, points.contiguous(), dist2, gate, params.radius,
             params.falloffrate, kernel, self.cfg.term,

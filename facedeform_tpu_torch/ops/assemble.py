@@ -55,6 +55,44 @@ def assemble_system(
     return torch.cat([top, bot], dim=0)
 
 
+def assemble_system_df(
+    ctrl: torch.Tensor,
+    kernel: RBFKernel,
+    term: PolyTerm,
+    eps,
+    lam,
+    tail_reg: float = 1e-8,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """assemble_system split into f32 words (a_hi, a_lo), a_hi + a_lo the
+    float64 system.
+
+    For growing kernels the f32 rounding of phi, amplified by the
+    system's conditioning, caps the forward accuracy of any solve against
+    the f32 matrix; solve.lu_solve_refined_against_df refines against
+    a_hi + a_lo instead.  The phi block (with lam on its diagonal) is
+    computed in float64 from the f32 coordinates and split; the tail rows
+    and the -tail_reg * I block are assemble_system's f32 values, so a_lo
+    is zero outside the N x N phi block.
+    """
+    n = ctrl.shape[0]
+    c64 = ctrl.double()
+    eps64 = torch.broadcast_to(torch.as_tensor(eps, device=ctrl.device).double(), (n,))
+    phi = apply_kernel(kernel, pairwise_sqdist(c64, c64), eps64)
+    lam64 = torch.as_tensor(lam, device=ctrl.device).double()
+    phi = phi + torch.diag(torch.broadcast_to(lam64, (n,)))
+    phi_hi = phi.float()
+    phi_lo = (phi - phi_hi.double()).float()
+    p = poly_basis(ctrl.float(), term)
+    m = p.shape[1]
+    if m == 0:
+        return phi_hi, phi_lo
+    tail = -tail_reg * torch.eye(m, dtype=torch.float32, device=ctrl.device)
+    a_hi = torch.cat([torch.cat([phi_hi, p], dim=1), torch.cat([p.T, tail], dim=1)], dim=0)
+    a_lo = torch.zeros_like(a_hi)
+    a_lo[:n, :n] = phi_lo
+    return a_hi, a_lo
+
+
 def assemble_rhs(delta: torch.Tensor, term: PolyTerm) -> torch.Tensor:
     """Right-hand side (..., N + m, 3): displacements (..., N, 3), zero rows
     for the tail; a leading axis carries the poses of a shot."""

@@ -6,6 +6,7 @@ Counterpart of facedeform_tpu/ops/pallas_eval.py:
   evaluate_cuda              <- evaluate_pallas         (_eval_kernel)
   evaluate_cuda_culled       <- evaluate_pallas_culled  (_eval_kernel_culled)
   evaluate_cuda_frames       <- evaluate_pallas_frames  (_eval_frames_kernel)
+  evaluate_cuda_diff         <- evaluate_pallas_diff    (custom VJP over #1)
   evaluate_reference         <- _dense_reference
   evaluate_frames_reference  <- per-frame evaluate_reference
 
@@ -13,12 +14,12 @@ A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; it never falls back.  Each
 wrapper counts its launches in its `launches` attribute.
 
-The kernels (these and csrc/jacobian.cu's, ops/cuda_jacobian.py) are
-compiled with nvcc for sm_90a at first use, from the sources in csrc/
-alone, one nvcc per source started together, then linked into one
-library in csrc/build/ under a name keyed by a hash of the sources and
-flags (a stale library is never loaded).  Importing this module builds
-nothing.
+The kernels (these, csrc/jacobian.cu's in ops/cuda_jacobian.py and
+csrc/precise.cu's in ops/cuda_precise.py) are compiled with nvcc for
+sm_90a at first use, from the sources in csrc/ alone, one nvcc per source
+started together, then linked into one library in csrc/build/ under a
+name keyed by a hash of the sources and flags (a stale library is never
+loaded).  Importing this module builds nothing.
 """
 
 from __future__ import annotations
@@ -124,6 +125,8 @@ def build() -> str:
     lib.fd_eval_frames.restype = i32
     lib.fd_jacobian.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
     lib.fd_jacobian.restype = i32
+    lib.fd_eval_precise.argtypes = [ptr] * 12 + [i32] * 5 + [f32, f32, ptr]
+    lib.fd_eval_precise.restype = i32
     _lib = lib
     return log
 
@@ -251,6 +254,69 @@ def evaluate_cuda(
 
 
 evaluate_cuda.launches = 0
+
+
+class _EvalDiff(torch.autograd.Function):
+    """evaluate_cuda forward, autograd of evaluate_reference backward.
+
+    Inputs after the static (kernel, term, strict_parity) triple: ctrl,
+    w_rbf, w_poly, eps, points, dist2, gate, radius, falloffrate, u, v, n;
+    radius/falloffrate may be Python numbers and u/v/n None."""
+
+    @staticmethod
+    def forward(ctx, static, *inputs):
+        kernel, term, strict_parity = static
+        ctrl, w_rbf, w_poly, eps, points, dist2, gate, radius, rate, u, v, n = inputs
+        frame = None if u is None else (u, v, n)
+        out = evaluate_cuda(RBFModel(ctrl, w_rbf, w_poly, eps), points, dist2, gate,
+                            radius, rate, kernel, term, strict_parity, frame)
+        if points.device.type == "cuda":
+            evaluate_cuda_diff.launches += 1
+        ctx.static = static
+        ctx.numbers = [None if isinstance(t, torch.Tensor) else t for t in inputs]
+        ctx.save_for_backward(*(t if isinstance(t, torch.Tensor) else None for t in inputs))
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out, g_w):
+        kernel, term, strict_parity = ctx.static
+        inputs = [t if num is None else num for t, num in zip(ctx.saved_tensors, ctx.numbers)]
+        want = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) if isinstance(t, torch.Tensor) else t
+                      for t, need in zip(inputs, want)]
+            ctrl, w_rbf, w_poly, eps, points, dist2, gate, radius, rate, u, v, n = leaves
+            out = evaluate_reference(
+                RBFModel(ctrl, w_rbf, w_poly, eps), points, dist2, gate, radius, rate,
+                kernel, term, strict_parity, None if u is None else (u, v, n))
+            diff = [t for t, need in zip(leaves, want) if need]
+            # the falloff depends on none of the model or the points
+            pairs = [(o, g) for o, g in zip(out, (g_out, g_w)) if o.requires_grad]
+            grads = iter(torch.autograd.grad([o for o, _ in pairs], diff,
+                                             [g for _, g in pairs], allow_unused=True))
+        return (None, *(next(grads) if need else None for need in want))
+
+
+def evaluate_cuda_diff(
+    model, points, dist2, gate, radius, falloffrate, frame,
+    kernel: RBFKernel, term: PolyTerm, strict_parity: bool = False,
+):
+    """evaluate_cuda with gradients: the dense kernel forward, a backward
+    through the plain twin's autograd on the saved inputs (the JAX
+    package's evaluate_pallas_diff, same argument order).
+
+    Differentiable with respect to the model's ctrl, w_rbf, w_poly and
+    eps, points, dist2, gate, radius, falloffrate (tensors) and the
+    frame's (u, v, n); kernel, term and strict_parity are static.  The lo
+    words play no part, as in the f32 kernel."""
+    u, v, n = (None, None, None) if frame is None else frame
+    return _EvalDiff.apply(
+        (RBFKernel(kernel), PolyTerm(term), bool(strict_parity)),
+        model.ctrl, model.w_rbf, model.w_poly, model.eps, points, dist2, gate,
+        radius, falloffrate, u, v, n)
+
+
+evaluate_cuda_diff.launches = 0
 
 
 def culled_slabs(model, kernel: RBFKernel):

@@ -5,11 +5,14 @@ z * mean(nndist), exact interpolation.  MULTILAYER: coarse-to-fine
 gaussian layers, radius halving per layer, each fitted to the residual of
 the previous ones.  KERNEL: one layer of the chosen zoo kernel with a
 global radius and ridge.  The polynomial tail rides the first layer only.
+Growing kernels (TPS/MQ/linear/cubic, GROWING_KERNELS) assemble their
+system in float64, split into f32 words (a_hi, a_lo), and refine by
+GMRES-IR against it; the others refine against the f32 system.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -17,20 +20,16 @@ from torch import nn
 from facedeform_tpu_torch.config import (
     DeformConfig, DeformParams, PolyTerm, RBFKernel, RBFModelType,
 )
-from facedeform_tpu_torch.ops.assemble import assemble_rhs, assemble_system
+from facedeform_tpu_torch.ops.assemble import (
+    assemble_rhs, assemble_system, assemble_system_df,
+)
 from facedeform_tpu_torch.ops.kernels import nearest_neighbor_dist
-from facedeform_tpu_torch.ops.solve import SolveReport, _lu_refined_impl, lu_factor_hp
+from facedeform_tpu_torch.ops.precise_eval import GROWING_KERNELS
+from facedeform_tpu_torch.ops.solve import (
+    SolveReport, _lu_against_df_impl, _lu_refined_impl, lu_factor_hp,
+)
 from facedeform_tpu_torch.utils import errors
 from facedeform_tpu_torch.utils.precision import highest_precision
-
-# Kernels whose phi grows with distance: their fits need double-float
-# assembly and their evals the precise path (both still to be ported).
-GROWING_KERNELS = (
-    RBFKernel.THIN_PLATE,
-    RBFKernel.MULTIQUADRIC,
-    RBFKernel.LINEAR,
-    RBFKernel.CUBIC,
-)
 
 _FIELDS = ("ctrl", "w_rbf", "w_poly", "eps", "w_rbf_lo", "w_poly_lo")
 
@@ -138,22 +137,85 @@ def _lam_col(lam: torch.Tensor) -> torch.Tensor:
 
 
 def _check_dense_route(cfg: DeformConfig, n: int) -> RBFKernel:
-    """The effective kernel, or NotImplementedError for the routes not
-    ported yet: Krylov (n > 8192 or solver="krylov") and growing kernels
-    (double-float assembly)."""
-    kernel = effective_kernel(cfg)
+    """The effective kernel, or NotImplementedError for the route not
+    ported yet: Krylov (n > 8192 or solver="krylov")."""
     if uses_krylov(cfg, n):
         raise NotImplementedError(
             f"the matrix-free Krylov route ({n} controls, solver="
             f"{cfg.solver!r}) is not ported yet (ROADMAP queue 1, slice F: "
-            "ops/krylov.py)"
+            "the large-rig solvers of ops/krylov.py)"
         )
+    return effective_kernel(cfg)
+
+
+class LayerFactors(NamedTuple):
+    """Pose-independent artifacts of one dense layer's solve: the system
+    (a_lo is the float64 remainder for growing kernels, None otherwise)
+    and the f32 LU factors of a_hi."""
+
+    a_hi: torch.Tensor
+    a_lo: Optional[torch.Tensor]
+    lu: torch.Tensor
+    piv: torch.Tensor
+
+
+def _assemble_layer(rest_ctrl, kernel, term, eps_l, lam0):
+    """One layer's system: the split float64 pair for growing kernels (the
+    f32 rounding of phi alone breaks the budget once the conditioning
+    amplifies it), the f32 system and None for decaying kernels."""
     if kernel in GROWING_KERNELS:
-        raise NotImplementedError(
-            f"{kernel.name} fits need double-float assembly, not ported yet "
-            "(ROADMAP queue 1, slice C: precision for growing kernels)"
-        )
-    return kernel
+        return assemble_system_df(rest_ctrl, kernel, term, eps_l, lam0)
+    return assemble_system(rest_ctrl, kernel, term, eps_l, lam0), None
+
+
+def _factor_layer(a_hi, a_lo) -> LayerFactors:
+    lu, piv = lu_factor_hp(a_hi)
+    return LayerFactors(a_hi=a_hi, a_lo=a_lo, lu=lu, piv=piv)
+
+
+def _resolve_layer(lay: LayerFactors, b: torch.Tensor, n_refine: int):
+    """Refined solve of b (R, k) against a layer's factors: GMRES-IR
+    against a_hi + a_lo (at least 3 sweeps) for growing kernels, float64-
+    residual refinement otherwise.  Returns ((x, x_lo), report)."""
+    if lay.a_lo is not None:
+        return _lu_against_df_impl(lay.a_hi, lay.a_lo, b, max(n_refine, 3),
+                                   lu_piv=(lay.lu, lay.piv))
+    (x, x_lo), report, _ = _lu_refined_impl(lay.a_hi, b, n_refine, want_lo=True,
+                                            lu_piv=(lay.lu, lay.piv))
+    return (x, x_lo), report
+
+
+def _dense_layer_solve(rest_ctrl, kernel, term, eps_l, lam0, b, n_refine):
+    """Assemble, factor and solve one dense layer: (a_hi, (x, x_lo),
+    report); a_hi chains the next layer's residual target."""
+    a, a_lo = _assemble_layer(rest_ctrl, kernel, term, eps_l, lam0)
+    return (a, *_resolve_layer(_factor_layer(a, a_lo), b, n_refine))
+
+
+def _pack(t: torch.Tensor) -> torch.Tensor:
+    """(F, rows, 3) pose blocks -> (rows, 3F) right-hand-side columns."""
+    return t.transpose(0, 1).reshape(t.shape[1], -1)
+
+
+def _unpack(x: torch.Tensor, f: int) -> torch.Tensor:
+    """(rows, 3F) columns -> (F, rows, 3) pose blocks."""
+    return x.reshape(x.shape[0], f, 3).transpose(0, 1)
+
+
+def _frames_report(report: SolveReport, a, x, b, f: int) -> SolveReport:
+    """Per-pose view (fields (F,)) of a packed (rows, 3F) solve's report:
+    each pose's residual norm from its 3 per-column backward errors
+    (||r_c|| = col_backward_c * col_scale_c), as the JAX package derives
+    it, over that pose's ||A|| ||x_f|| + ||b_f||."""
+    a_norm = torch.linalg.norm(a)
+    col_r = report.col_backward * (
+        a_norm * torch.linalg.norm(x, dim=0) + torch.linalg.norm(b, dim=0))
+    b_f = torch.linalg.norm(_unpack(b, f), dim=(1, 2))
+    return SolveReport(
+        residual_norm=torch.sqrt(torch.sum(col_r.reshape(f, 3) ** 2, dim=1)),
+        rhs_norm=b_f,
+        scale_norm=a_norm * torch.linalg.norm(_unpack(x, f), dim=(1, 2)) + b_f,
+    )
 
 
 def fit(
@@ -166,9 +228,10 @@ def fit(
     """Fit an RBFModel mapping rest control points to their displacements.
 
     Runs on rest_ctrl's device.  Returns (model, report); the report is the
-    layer with the worst backward error.  The Krylov route (n > 8192 or
-    solver="krylov") and the growing kernels (which need double-float
-    assembly) raise NotImplementedError until they are ported.
+    layer with the worst backward error.  Growing kernels (TPS/MQ/linear/
+    cubic) assemble in float64 and refine by GMRES-IR against it; the
+    Krylov route (n > 8192 or solver="krylov") raises NotImplementedError
+    until it is ported.
     """
     n = rest_ctrl.shape[0]
     kernel = _check_dense_route(cfg, n)
@@ -185,9 +248,9 @@ def fit(
     for layer in range(cfg.n_layers):
         eps_l = eps0 * (0.5 ** layer)
         term = cfg.term if layer == 0 else PolyTerm.ZERO
-        a = assemble_system(rest_ctrl, kernel, term, eps_l, lam0)
         b = assemble_rhs(target, term)
-        (x, x_lo), report, _ = _lu_refined_impl(a, b, cfg.n_refine, want_lo=True)
+        a, (x, x_lo), report = _dense_layer_solve(
+            rest_ctrl, kernel, term, eps_l, lam0, b, cfg.n_refine)
         w_l = x[:n]
         w_layers.append(w_l)
         w_lo_layers.append(x_lo[:n])
@@ -225,9 +288,12 @@ def fit_frames_per_pose(
 
     The system depends on the rest rig only, so it is assembled once; each
     pose factors its own copy of it (F batched LU factorizations) and
-    refines its own 3 columns.  Returns (model with w_rbf (F, L, N, 3),
-    w_poly (F, m, 3) and their lo words stacked the same way, per-frame
-    residual norms (F,) of each frame's worst layer)."""
+    refines its own 3 columns.  A growing kernel runs fit_frames_dense's
+    solve (one factorization of the float64 pair, fit()'s GMRES-IR per
+    pose's 3-column block, so a pose's weights are exactly fit()'s) and
+    keeps the lo words that route drops.  Returns (model with w_rbf
+    (F, L, N, 3), w_poly (F, m, 3) and their lo words stacked the same
+    way, per-frame residual norms (F,) of each frame's worst layer)."""
     n, f = rest_ctrl.shape[0], deformed_frames.shape[0]
     kernel = _check_dense_route(cfg, n)
     params = params.clamped()
@@ -241,10 +307,18 @@ def fit_frames_per_pose(
     for layer in range(cfg.n_layers):
         eps_l = eps0 * (0.5 ** layer)
         term = cfg.term if layer == 0 else PolyTerm.ZERO
-        a = assemble_system(rest_ctrl, kernel, term, eps_l, lam0)
-        lu_piv = lu_factor_hp(a.expand(f, *a.shape))
-        (x, x_lo), report, _ = _lu_refined_impl(
-            a, assemble_rhs(target, term), cfg.n_refine, want_lo=True, lu_piv=lu_piv)
+        b = assemble_rhs(target, term)
+        if kernel in GROWING_KERNELS:
+            b = _pack(b)
+            a, (x, x_lo), packed = _dense_layer_solve(
+                rest_ctrl, kernel, term, eps_l, lam0, b, cfg.n_refine)
+            report = _frames_report(packed, a, x, b, f)
+            x, x_lo = _unpack(x, f), _unpack(x_lo, f)
+        else:
+            a = assemble_system(rest_ctrl, kernel, term, eps_l, lam0)
+            lu_piv = lu_factor_hp(a.expand(f, *a.shape))
+            (x, x_lo), report, _ = _lu_refined_impl(
+                a, b, cfg.n_refine, want_lo=True, lu_piv=lu_piv)
         w_l = x[:, :n]
         w_layers.append(w_l)
         w_lo_layers.append(x_lo[:, :n])
@@ -285,6 +359,8 @@ def fit_frames_dense(
     Returns (model with w_rbf (F, L, N, 3) and w_poly (F, m, 3), lo words
     dropped as in the JAX package; per-frame residual norms (F,), each
     frame's worst layer; the aggregate SolveReport of the worst layer).
+    Growing kernels refine in 3-column blocks, one GMRES-IR per pose: the
+    per-pose route's solve, which keeps the lo words.
     """
     n, f = rest_ctrl.shape[0], deformed_frames.shape[0]
     kernel = _check_dense_route(cfg, n)
@@ -293,26 +369,16 @@ def fit_frames_dense(
     target = deformed_frames.float() - rest_ctrl[None]          # (F, N, 3)
     eps0, lam0 = _family_radii(cfg, params, rest_ctrl, confidence)
 
-    def pack(t):      # (F, rows, 3) -> (rows, 3F)
-        return t.transpose(0, 1).reshape(t.shape[1], -1)
-
-    def unpack(x):    # (rows, 3F) -> (F, rows, 3)
-        return x.reshape(x.shape[0], f, 3).transpose(0, 1)
-
     w_layers, eps_layers, reports, frame_resids = [], [], [], []
     w_poly = torch.zeros((f, cfg.n_poly, 3), device=rest_ctrl.device)
     for layer in range(cfg.n_layers):
         eps_l = eps0 * (0.5 ** layer)
         term = cfg.term if layer == 0 else PolyTerm.ZERO
-        a = assemble_system(rest_ctrl, kernel, term, eps_l, lam0)
-        b = pack(assemble_rhs(target, term))
-        (x, _), report, _ = _lu_refined_impl(a, b, cfg.n_refine, want_lo=True)
-        # per-frame residual norms from the per-column backward errors
-        # (||r_c|| = col_backward_c * col_scale_c), as the JAX package does
-        col_r = report.col_backward * (
-            torch.linalg.norm(a) * torch.linalg.norm(x, dim=0) + torch.linalg.norm(b, dim=0))
-        frame_resids.append(torch.sqrt(torch.sum(col_r.reshape(f, 3) ** 2, dim=1)))
-        x_f = unpack(x)                                          # (F, rows, 3)
+        b = _pack(assemble_rhs(target, term))
+        a, (x, _), report = _dense_layer_solve(
+            rest_ctrl, kernel, term, eps_l, lam0, b, cfg.n_refine)
+        frame_resids.append(_frames_report(report, a, x, b, f).residual_norm)
+        x_f = _unpack(x, f)                                      # (F, rows, 3)
         w_l = x_f[:, :n]
         w_layers.append(w_l)
         eps_layers.append(eps_l)
@@ -322,7 +388,7 @@ def fit_frames_dense(
         if layer + 1 < cfg.n_layers:
             with highest_precision():
                 ax = a @ x
-            target = target - (unpack(ax)[:, :n] - _lam_col(lam0) * w_l)
+            target = target - (_unpack(ax, f)[:, :n] - _lam_col(lam0) * w_l)
     model = RBFModel(
         ctrl=rest_ctrl.clone(),
         w_rbf=torch.stack(w_layers, dim=1),

@@ -8,6 +8,10 @@ exactly the float64 residual of the f32 matrix against the f32 solution
 pair, and the H100 has native fp64, so the port computes the residual in
 float64 directly.  The f32 LU, the double-float solution pair
 (x_hi, x_lo) and the SolveReport semantics stay as they are.
+
+Growing kernels solve against the float64 system split into f32 words
+(assemble.assemble_system_df): lu_solve_refined_against_df factors a_hi
+and refines by GMRES-IR with float64 residuals against a_hi + a_lo.
 """
 
 from __future__ import annotations
@@ -128,3 +132,89 @@ def lu_solve_refined(
     the f32 solution and its SolveReport (see errors.check_solve)."""
     (x, _), report, _ = _lu_refined_impl(a, b, n_refine, want_lo=False)
     return x, report
+
+
+def lu_solve_refined_df(
+    a: torch.Tensor, b: torch.Tensor, n_refine: int = 2
+) -> tuple[tuple[torch.Tensor, torch.Tensor], SolveReport]:
+    """lu_solve_refined returning the solution pair (x_hi, x_lo): x_lo holds
+    the sub-f32 bits the precise eval contracts against."""
+    x_pair, report, _ = _lu_refined_impl(a, b, n_refine, want_lo=True)
+    return x_pair, report
+
+
+def lu_resolve_refined_df(
+    lu_piv, a: torch.Tensor, b: torch.Tensor, n_refine: int = 2
+) -> tuple[tuple[torch.Tensor, torch.Tensor], SolveReport]:
+    """lu_solve_refined_df against precomputed (lu, piv) factors of a."""
+    x_pair, report, _ = _lu_refined_impl(a, b, n_refine, want_lo=True, lu_piv=lu_piv)
+    return x_pair, report
+
+
+def _map_col_blocks(refine_fn, b: torch.Tensor, kb: int = 3):
+    """refine_fn((n, kb) block) -> (x_hi, x_lo, r) over b's columns in
+    consecutive kb-column groups, run one after another.  GMRES ends on its
+    `any`-column test, so the block width is part of the result: kb = 3
+    keeps one pose's xyz together (the packed frames layout is frame-major
+    3-column groups).  Each block is made contiguous, so a pose solves
+    exactly as its own (n, 3) right-hand side would."""
+    k = b.shape[1]
+    if k <= kb:
+        return refine_fn(b.contiguous())
+    outs = [refine_fn(blk.contiguous()) for blk in torch.split(b, kb, dim=1)]
+    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
+def _lu_against_df_impl(a_hi, a_lo, b, n_refine, lu_piv=None):
+    """Solve (a_hi + a_lo) X = b with an f32 LU of a_hi (factored here
+    unless (lu, piv) are given) and the solution kept as (x_hi, x_lo).
+
+    Each sweep's residual b - (a_hi + a_lo)(x_hi + x_lo) is float64 and
+    its correction equation is solved by LU-preconditioned GMRES (GMRES-IR,
+    Carson & Higham), which converges where stationary refinement stalls
+    at cond * u ~ 1; its f32 operator is a_hi @ v + a_lo @ v as two
+    separate products, never (a_hi + a_lo) @ v, whose f32 sum would round
+    a_lo away.  Returns ((x_hi, x_lo), report)."""
+    from facedeform_tpu_torch.ops.krylov import gmres
+
+    a_hi, a_lo, b = a_hi.float(), a_lo.float(), b.float()
+    a64 = a_hi.double() + a_lo.double()
+    with highest_precision():
+        lu, piv = lu_factor_hp(a_hi) if lu_piv is None else lu_piv
+
+        def msolve(v):
+            return torch.linalg.lu_solve(lu, piv, v)
+
+        def matvec(v):
+            return a_hi @ v + a_lo @ v
+
+        def refine(b_blk):
+            b64 = b_blk.double()
+            x_hi = msolve(b_blk)
+            x_lo = torch.zeros_like(x_hi)
+            for _ in range(n_refine):
+                r = _residual64(a64, x_hi, x_lo, b64)
+                dx, _ = gmres(matvec, r, msolve, restart=16, max_restarts=2)
+                x_hi, e = _two_sum(x_hi, dx)
+                x_lo = x_lo + e
+            return x_hi, x_lo, _residual64(a64, x_hi, x_lo, b64)
+
+        x_hi, x_lo, r = _map_col_blocks(refine, b)
+    report = _report_from(torch.linalg.norm(a_hi), torch.diagonal(lu), x_hi, b, r)
+    return (x_hi, x_lo), report
+
+
+def lu_solve_refined_against_df(
+    a_hi: torch.Tensor, a_lo: torch.Tensor, b: torch.Tensor, n_refine: int = 3,
+) -> tuple[tuple[torch.Tensor, torch.Tensor], SolveReport]:
+    """Solve (A_hi + A_lo) X = B (assemble_system_df's pair) with an f32 LU
+    of A_hi and GMRES-IR.  The JAX package's stationary option
+    (gmres_ir=False) serves the unported partition-of-unity route."""
+    return _lu_against_df_impl(a_hi, a_lo, b, n_refine)
+
+
+def lu_resolve_refined_against_df(
+    lu_piv, a_hi: torch.Tensor, a_lo: torch.Tensor, b: torch.Tensor, n_refine: int = 3,
+) -> tuple[tuple[torch.Tensor, torch.Tensor], SolveReport]:
+    """lu_solve_refined_against_df against precomputed factors of A_hi."""
+    return _lu_against_df_impl(a_hi, a_lo, b, n_refine, lu_piv=lu_piv)

@@ -8,7 +8,9 @@ An animated shot keeps its rest rig and mesh fixed, so:
     factorization per layer with the frames as right-hand-side columns;
   * apply_frames evaluates every frame against the same vertex buffer in
     one kernel pass per frame chunk (distances and phi computed once per
-    (vertex, control), ops.cuda_eval.evaluate_cuda_frames);
+    (vertex, control), ops.cuda_eval.evaluate_cuda_frames), or for growing
+    kernels one float64 precise launch per frame
+    (ops.cuda_precise.evaluate_cuda_precise);
   * transport_frames carries point attributes through each frame's
     deformation gradient, with the Jacobians of a frame chunk from one
     kernel pass (ops.cuda_jacobian.jacobian_cuda_frames).
@@ -23,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from facedeform_tpu_torch.config import DeformConfig, DeformParams
-from facedeform_tpu_torch.ops import cuda_eval, cuda_jacobian
+from facedeform_tpu_torch.ops import cuda_eval, cuda_jacobian, cuda_precise
 from facedeform_tpu_torch.ops import fit as fit_mod
 from facedeform_tpu_torch.ops.falloff import falloff_weight
 from facedeform_tpu_torch.ops.fit import GROWING_KERNELS, RBFModel
@@ -42,6 +44,9 @@ from facedeform_tpu_torch.ops.jacobian import (
 # (measured on an H100 at 4096 controls x 32 frames: 2.378 GB peak, 2.353
 # GB estimated).  The budget is three eighths of an 80 GB card, the share
 # of device memory the JAX package's 6e9 left the fit on a 15.75 GB v5e.
+# Growing kernels make no F copies: both routes run one factorization and
+# the same per-pose GMRES-IR, so for them the budget decides only whether
+# the lo words are kept (dropped past it, as in the JAX package).
 vmap_fit_hbm_budget = 30e9
 
 
@@ -78,7 +83,8 @@ def fit_frames(
     package: the per-pose fit (fit_mod.fit_frames_per_pose, lo words
     stacked) while its temporaries fit vmap_fit_hbm_budget, the shared
     factorization (fit_mod.fit_frames_dense, lo words dropped) above it.
-    Check the residuals with utils.errors.check_frames."""
+    For growing kernels the two routes run the same solve and differ only
+    in the lo words.  Check the residuals with utils.errors.check_frames."""
     rest_ctrl = _f32(rest_ctrl, device)
     deformed_frames = _f32(deformed_frames, device)
     if confidence is not None:
@@ -112,16 +118,13 @@ def apply_frames(
     frames kernel takes as its gate (dist2 = 0, radius = rate = 1: the
     kernel's falloff is then exactly that weight).  frame=(u, v, n) of
     (V, 3) tangent attributes projects every frame's displacement when
-    cfg.tangent is set; it is dropped otherwise.  Growing kernels need the
-    double-float path and raise NotImplementedError."""
+    cfg.tangent is set; it is dropped otherwise.  The frames kernel is
+    f32-only, so growing kernels take one float64 precise launch per frame
+    (ops.cuda_precise), with that frame's weights and lo words and the
+    same folded weight as its gate."""
     _mesh_not_ported(mesh)
     dev = batched_model.device
     kernel = fit_mod.effective_kernel(cfg)
-    if kernel in GROWING_KERNELS:
-        raise NotImplementedError(
-            f"{kernel.name} is a growing kernel: its frames eval needs the "
-            "double-float precise path, not ported yet (ROADMAP queue 1, slice C)"
-        )
     points = _f32(points, dev).contiguous()
     frame = None if not cfg.tangent or frame is None else tuple(
         _f32(f, dev).contiguous() for f in frame)
@@ -129,9 +132,20 @@ def apply_frames(
     w, _ = falloff_weight(_f32(dist2, dev), params.radius, params.falloffrate,
                           strict_parity=cfg.strict_parity)
     w = (w * _f32(gate, dev)).contiguous()
+    zeros = torch.zeros_like(w)
+    if kernel in GROWING_KERNELS:
+        m = batched_model
+        has_lo = m.w_rbf_lo is not None
+        out = torch.empty((m.w_rbf.shape[0],) + tuple(points.shape), device=dev)
+        for f in range(out.shape[0]):
+            out[f] = cuda_precise.evaluate_cuda_precise(
+                RBFModel(ctrl=m.ctrl, w_rbf=m.w_rbf[f], w_poly=m.w_poly[f], eps=m.eps,
+                         w_rbf_lo=m.w_rbf_lo[f] if has_lo else None,
+                         w_poly_lo=m.w_poly_lo[f] if has_lo else None),
+                points, zeros, w, 1.0, 1.0, kernel, cfg.term, frame=frame)[0]
+        return out, w
     out, _ = cuda_eval.evaluate_cuda_frames(
-        batched_model, points, torch.zeros_like(w), w, 1.0, 1.0, kernel, cfg.term,
-        frame=frame,
+        batched_model, points, zeros, w, 1.0, 1.0, kernel, cfg.term, frame=frame,
     )
     return out, w
 

@@ -112,24 +112,32 @@ def test_degenerate_rig_fails_solve():
 
 
 def test_growing_kernels_and_krylov_not_ported():
-    rest, deformed, pts, *_ = _scene(n=40, v=50)
+    """Growing kernels (once not ported, hence the name) fit and apply
+    through the float64 path; the Krylov route still raises."""
+    rest, deformed, pts, dist2, mask, _ = _scene(n=40, v=50)
     mq = jcfg.DeformConfig(model=M.KERNEL, kernel=K.MULTIQUADRIC)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        Deformer.fit(rest, deformed, *_port(mq, jcfg.DeformParams()), device="cpu")
+    own = Deformer.fit(rest, deformed, *_port(mq, jcfg.DeformParams()), device="cpu")
+    assert own.model.w_rbf_lo is not None
     with pytest.raises(NotImplementedError, match="slice F"):
         Deformer.fit(rest, deformed, DeformConfig(solver="krylov"), device="cpu")
-    # a JAX-fitted growing-kernel model carries over; its precise eval does not
+    # a JAX-fitted growing-kernel model carries over and evaluates as
+    # JAX's auto route (dense_precise) does
     jd = jdef.Deformer.fit(rest, deformed, mq, jcfg.DeformParams())
     model = convert.model_from_numpy(
         {f: np.asarray(getattr(jd.model, f)) for f in jd.model._fields})
     assert model.w_rbf_lo is not None
     td = Deformer(model=model, cfg=_port(mq, jcfg.DeformParams())[0],
                   params=_port(mq, jcfg.DeformParams())[1], report=None)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        td.apply(pts)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        td.displacement(pts)
+    got, got_w = td.apply(pts, dist2=dist2, group_mask=mask)
+    want, want_w = jd.apply(pts, dist2=dist2, group_mask=mask)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    np.testing.assert_array_equal(got_w.numpy(), np.asarray(want_w))
+    np.testing.assert_array_equal(got.numpy()[~mask], pts[~mask])
+    np.testing.assert_allclose(td.displacement(pts).numpy(), np.asarray(jd.displacement(pts)),
+                               atol=1e-6)
     # forcing a backend evaluates the f32 field, as in the JAX package
     got = td.apply(pts, backend="dense")[0].numpy()
     want = np.asarray(jd.apply(pts, backend="dense")[0])
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    got = td.apply(pts, backend="cuda")[0].numpy()
     np.testing.assert_allclose(got, want, atol=1e-4)

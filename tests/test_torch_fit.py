@@ -98,11 +98,27 @@ def test_fit_rejects_like_jax():
 
 @pytest.mark.parametrize("kernel", [K.THIN_PLATE, K.MULTIQUADRIC, K.LINEAR, K.CUBIC])
 def test_growing_kernel_fit_not_ported(kernel):
-    rest, deformed, _ = _rig(n=20)
-    cfg = convert.config_from_fields(
-        dataclasses.asdict(jcfg.DeformConfig(model=M.KERNEL, kernel=kernel)))
-    with pytest.raises(NotImplementedError, match="slice C"):
-        tfit.fit(torch.as_tensor(rest), torch.as_tensor(deformed), cfg)
+    """Growing-kernel fits (once not ported, hence the name) take the
+    float64-assembly GMRES-IR route: lo words kept, fields through the
+    precise eval within 1e-5 of JAX's double-float fit."""
+    from facedeform_tpu.ops import precise_eval as jprecise
+    from facedeform_tpu_torch.ops import precise_eval as tprecise
+
+    rest, deformed, probes = _rig()
+    jc = jcfg.DeformConfig(model=M.KERNEL, kernel=kernel)
+    params = jcfg.DeformParams(radius=1.0, lam=0.01)
+    jm, jr = jfit.fit(jnp.asarray(rest), jnp.asarray(deformed), jc, params)
+    cfg = convert.config_from_fields(dataclasses.asdict(jc))
+    tm, tr = tfit.fit(torch.as_tensor(rest), torch.as_tensor(deformed), cfg,
+                      convert.params_from_fields(params._asdict()))
+    for field in ("ctrl", "w_rbf", "w_poly", "eps", "w_rbf_lo", "w_poly_lo"):
+        assert tuple(getattr(tm, field).shape) == tuple(np.shape(getattr(jm, field)))
+    assert bool(tm.w_rbf_lo.abs().max() > 0)
+    want = np.asarray(jprecise.evaluate_precise(jm, jnp.asarray(probes), kernel, jc.term))
+    got = tprecise.evaluate_precise(tm, torch.as_tensor(probes), kernel, jc.term).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    assert float(tr.backward_error()) <= errors.SOLVE_BACKWARD_RTOL
+    assert float(jr.backward_error()) <= errors.SOLVE_BACKWARD_RTOL
 
 
 def test_krylov_route_not_ported():

@@ -354,14 +354,23 @@ def test_deform_frames_matches_jax():
 
 
 def test_growing_kernels_and_mesh_not_ported():
+    """Growing-kernel shots (once not ported, hence the name) fit and apply
+    through the float64 path; mesh= and the Krylov route still raise."""
     rest, frames = _shot(n=30, n_frames=2)
     pts, dist2, gate, _ = _mesh(v=50)
     mq = jcfg.DeformConfig(model=M.KERNEL, kernel=K.MULTIQUADRIC)
     jm, _ = jbatched.fit_frames(jnp.asarray(rest), jnp.asarray(frames), mq, PARAMS)
-    with pytest.raises(NotImplementedError, match="slice C"):
-        tbatched.apply_frames(_to_port(jm), pts, dist2, gate, _port_cfg(mq), _port_params())
-    with pytest.raises(NotImplementedError, match="slice C"):
-        tbatched.fit_frames(rest, frames, _port_cfg(mq), device="cpu")
+    want, want_w = jbatched.apply_frames(jm, jnp.asarray(pts), jnp.asarray(dist2),
+                                         jnp.asarray(gate), mq, PARAMS)
+    got, got_w = tbatched.apply_frames(_to_port(jm), pts, dist2, gate, _port_cfg(mq),
+                                       _port_params())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), atol=1e-6)
+    own, resid = tbatched.fit_frames(rest, frames, _port_cfg(mq), _port_params(), device="cpu")
+    errors.check_frames(resid, rest, frames)
+    assert tuple(own.w_rbf_lo.shape) == (2, 1, 30, 3)
+    mine, _ = tbatched.apply_frames(own, pts, dist2, gate, _port_cfg(mq), _port_params())
+    assert np.abs(mine.numpy() - np.asarray(want)).max() <= BUDGET
     cfg = _port_cfg(jcfg.DeformConfig())
     model, _ = tbatched.fit_frames(rest, frames, cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="slice H"):
