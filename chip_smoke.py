@@ -23,6 +23,11 @@
      miss the bound (so the bound tells float64 from f32);
    - the custom-VJP eval (dense kernel forward, plain backward): gradients
      w.r.t. w_rbf and points at 65536 x 1000, gaussian and TPS;
+   - the partition-of-unity tile kernel on fitted 3000-control rigs: TPS,
+     gaussian, MQ and Wendland x LINEAR, CONSTANT and ZERO tails, F in {1,
+     2, 8, 16, 17}, far points (nearest-patch fallback) and coverage-shell
+     points, a single-patch rig, and one case against the plain f32
+     evaluate_pu;
 4. runs slice A's main path at the headline size: Deformer.fit of 1000
    Fibonacci controls (default config), apply("auto") and
    apply(backend="cuda") on the 1M-vertex UV sphere, the localized
@@ -45,12 +50,26 @@
    it; each apply's whole output, each shot frame and the gradient
    against their plain twins, displacements against a float64 solve of
    the same systems, each shot frame against the single-pose precise path;
+6b. runs slice F's main path, partition-of-unity rigs (the JAX package's
+   benchmark configs 9 and 10): PUDeformer.fit of 30k TPS controls and
+   displacement on the 1M-vertex sphere (one PU launch) and at the
+   controls, the whole output against the plain twin and the float64 plain
+   tiles, the Jacobian against a float64 central difference; then a
+   20k-control x 8-pose PUSeqDeformer: displacement_frames and apply_seq
+   (capture d2, gate, tangent frame), one launch each, every frame against
+   its single-pose kernel run, the shot against the twin;
 7. times fit, each kernel and its plain version, the frames kernel against
    8 dense launches, F = 8/11/16/17/32 per frame, both fit_frames routes,
    the precise kernel against its plain twin and the f32 dense kernel at
    1M x 4096 and 1M x 1000, the float64-route fits at 4096 and the
-   custom-VJP eval's forward + backward (facedeform_tpu_torch.benchmark);
-8. prints a kernels JSON line, the card line, and as its last line
+   custom-VJP eval's forward + backward, the PU kernel against its twin at
+   1M x 30k and 1M x 20k x 8 frames, the PU fits and host plan builds, and
+   profiles of the 30k PU fit and the PU kernel
+   (facedeform_tpu_torch.benchmark);
+8. prints a kernels JSON line (per kernel its time, its plain version's,
+   its bound from this run's inputs and which of bytes or operations binds
+   it, library_ms null: no single PyTorch call computes an RBF or PU
+   field), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero.
@@ -97,11 +116,59 @@ GRAD_RTOL = 1e-4
 # growing-kernel shot frames vs single-pose precise applies: one
 # factorization and one GMRES per pose in both, the same kernel
 SHOT_VS_SINGLE_TOL = 1e-6
+# PU tile kernel vs its plain twin, relative to max|disp|: both take exact
+# f32 differences and the same phi, the contraction sums in another order
+# (sequential FMAs vs a batched matmul); on a 3000-control rig the twin's
+# own f32 noise against float64 reaches 2.8e-6 of max|disp| (TPS, CPU
+# probe), so two orders may differ by about twice that
+PU_TOL = 1e-5
+# PU kernel vs the plain f32 evaluate_pu (d2 by the expansion identity),
+# absolute: the JAX package's bound for Mosaic vs XLA (tests/test_pu.py)
+PU_PLAIN_TOL = 1e-5
+# f32 kernel vs the float64 plain tiles on an eps="auto" fit, absolute:
+# the JAX package's f32-vs-double-float bound (tests/test_pu.py)
+PU_F64_TOL = 5e-6
+PU_BACKWARD_TOL = 1e-9    # PU fit health (tests/test_pu.py)
+# PU Jacobian (plain f32) vs a float64 central difference (h = 1e-5) of
+# the float64 field, relative to max|J|: 9e-6 measured on a 3000-control
+# TPS rig (CPU probe)
+PU_JAC_FD_TOL = 1e-4
+# host-clock rounds of the PU fits and host builds: their walls vary with
+# the shared host, so the medians of interleaved rounds are what to read
+PU_WALL_ROUNDS = 7
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet) for the bound_ms of the
+# kernels line: f32 and fp64 outside the tensor cores, device memory.
+# Operations are counted per pair from each kernel's source, a
+# transcendental (exp, log, sqrt) as one operation and an FMA as two, so
+# the operation bound is a lower bound.
+PEAK_F32 = 67e12
+PEAK_F64 = 34e12
+PEAK_BYTES = 3.35e12
 
 
 def _check(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
+
+
+def _bound(n_bytes: float, n_ops: float, peak: float) -> dict:
+    """bound_ms (the larger of bytes / memory rate and operations / peak)
+    and which of the two binds."""
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = n_ops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _pairs_within(pts, ctrl, cutoff2, chunk=65536) -> int:
+    """(vertex, control) pairs with |v - c|^2 <= cutoff2[c]: the pairs a
+    culled evaluation needs."""
+    n = 0
+    for p in torch.split(pts, chunk):
+        d2 = ((p[:, None, :] - ctrl[None]) ** 2).sum(-1)
+        n += int((d2 <= cutoff2[None]).sum())
+    return n
 
 
 def _synthetic_model(n, n_layers, kernel, rng, dev):
@@ -600,15 +667,25 @@ def time_kernels(main: dict, label: str) -> list:
         print(f"time {k}: {best:.4f} ms best, {med:.4f} median, spread "
               f"{spread * 100:.1f}% at {v} x {model.ctrl.shape[0]}  [{label}]")
     src = "facedeform_tpu_torch/csrc/eval.cu"
+    n = model.ctrl.shape[0]
+    # per pair: d2 8, s 1, exp(-s) 2, 3 FMAs 6; bytes: points, dist2, gate,
+    # out, falloff (36 B/vertex), ctrl, w, inv_eps2 (28 B/control)
+    n_bytes = 36 * v + 28 * n + 48
+    cut2 = (model.eps[0] ** 2) * 27.7          # phi <= 1e-12 beyond (culled)
+    culled_pairs = _pairs_within(pts, model.ctrl, cut2)
+    print(f"culled kernel at {v} x {n}: {culled_pairs} pairs within the cutoff "
+          f"({culled_pairs / (v * n) * 100:.1f}% of dense)")
     return [
         {"name": "eval_dense", "route": "cuda", "source": src,
          "replaces": "facedeform_tpu/ops/pallas_eval.py:349",
          "launches": main["launches"]["dense"], "max_abs_err": errs["dense"],
-         "ms": times["dense"][0], "plain_ms": times["plain"][0]},
+         "ms": times["dense"][0], "plain_ms": times["plain"][0],
+         **_bound(n_bytes, 17 * v * n, PEAK_F32), "library_ms": None},
         {"name": "eval_culled", "route": "cuda", "source": src,
          "replaces": "facedeform_tpu/ops/pallas_eval.py:868",
          "launches": main["launches"]["culled"], "max_abs_err": errs["culled"],
-         "ms": times["culled"][0], "plain_ms": times["plain"][0]},
+         "ms": times["culled"][0], "plain_ms": times["plain"][0],
+         **_bound(n_bytes, 17 * culled_pairs, PEAK_F32), "library_ms": None},
     ]
 
 
@@ -715,19 +792,28 @@ def time_frames(main_b: dict, label: str) -> list:
         print(f"fit_frames per-pose route peak device memory at {n_ctrl} x {nf}: "
               f"{peak / 1e9:.3f} GB (estimate {batched._vmap_fit_bytes(rows, nf) / 1e9:.3f} GB)")
 
+    n = model.ctrl.shape[0]
+    f = n_frames
     return [
+        # per pair: d2 8, s 1, exp(-s) 2, 3F FMAs; bytes: points, dist2, gate,
+        # falloff, (F, V, 3) out; ctrl, inv_eps2, (N, 3F) weights, tails
         {"name": "eval_frames", "route": "cuda",
          "source": "facedeform_tpu_torch/csrc/frames.cu",
          "replaces": "facedeform_tpu/ops/pallas_eval.py:616",
          "launches": main_b["launches"]["evaluate_cuda_frames"], "max_abs_err": err_frames,
-         "ms": t["frames"][0], "plain_ms": t["frames plain"][0]},
+         "ms": t["frames"][0], "plain_ms": t["frames plain"][0],
+         **_bound(24 * v + 12 * f * v + 16 * n + 12 * f * n + 48 * f,
+                  (11 + 6 * f) * v * n, PEAK_F32), "library_ms": None},
+        # per pair: d2 8, s 1, phi' 2, g 2, per frame 3 x (mul, add, 3 FMAs)
         {"name": "jacobian", "route": "cuda",
          "source": "facedeform_tpu_torch/csrc/jacobian.cu",
          "replaces": "facedeform_tpu/ops/pallas_jacobian.py:160",
          "launches": main_b["launches"]["jacobian_cuda"]
          + main_b["launches"]["jacobian_cuda_frames"],
          "max_abs_err": max(err_jac, err_jac1),
-         "ms": jt["jacobian F=8"][0], "plain_ms": jt["jacobian plain F=8"][0]},
+         "ms": jt["jacobian F=8"][0], "plain_ms": jt["jacobian plain F=8"][0],
+         **_bound(12 * v + 36 * f * v + 16 * n + 12 * f * n, (13 + 24 * f) * v * n,
+                  PEAK_F32), "library_ms": None},
     ]
 
 
@@ -1149,17 +1235,479 @@ def time_precise(main_c: dict, label: str) -> list:
     for k, x in dt.items():
         print(_fmt(k, x, f" (gaussian) at 65536 x 1000  [{label}]"))
     t4k, e4k = res[4096]
+    n_d, v_d = 1000, sub.shape[0]
     return [
+        # fp64, per pair: d2 8, s 1, TPS phi 5, 3 FMAs 6; bytes: points,
+        # dist2, gate, out, falloff; ctrl, w hi + lo, eps
         {"name": "eval_precise", "route": "cuda",
          "source": "facedeform_tpu_torch/csrc/precise.cu",
          "replaces": "facedeform_tpu/ops/pallas_precise.py:231",
          "launches": main_c["launches"]["evaluate_cuda_precise"], "max_abs_err": e4k,
-         "ms": t4k["precise"][0], "plain_ms": t4k["precise plain"][0]},
+         "ms": t4k["precise"][0], "plain_ms": t4k["precise plain"][0],
+         **_bound(36 * v + 40 * 4096, 20 * v * 4096, PEAK_F64), "library_ms": None},
+        # forward 17 per pair, backward ~22 (w: 3 FMAs; points: w.cot, phi',
+        # scale, 3 FMAs); bytes: the forward's, the cotangent, both gradients
         {"name": "eval_diff", "route": "cuda",
          "source": "facedeform_tpu_torch/csrc/eval.cu",
          "replaces": "facedeform_tpu/ops/pallas_eval.py:920",
          "launches": main_c["launches"]["evaluate_cuda_diff"], "max_abs_err": err_diff,
-         "ms": dt["diff fwd+bwd"][0], "plain_ms": dt["plain fwd+bwd"][0]},
+         "ms": dt["diff fwd+bwd"][0], "plain_ms": dt["plain fwd+bwd"][0],
+         **_bound(60 * v_d + 40 * n_d, 39 * v_d * n_d, PEAK_F32), "library_ms": None},
+    ]
+
+
+def _bump_rig(n, centers=((0, 1, 0),)):
+    """fibonacci_points(n) and, per center c, the displacement
+    0.1 exp(-3 |x - c|^2) y (the JAX package's PU benchmark rigs,
+    benchmarks/run_all.py configs 9 and 10): (rest, (F, n, 3) poses)."""
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points
+
+    rest = fibonacci_points(n)
+    frames = np.stack([
+        rest + (0.1 * np.exp(-3 * np.sum((rest - np.float32(c)) ** 2, -1, keepdims=True))
+                ).astype(np.float32) * np.float32([0, 1, 0])
+        for c in centers])
+    return rest, frames
+
+
+def _unit_dirs(n, rng):
+    d = rng.standard_normal((n, 3))
+    return (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+
+
+def check_pu_kernel(dev) -> float:
+    """Phase 3f: the PU tile kernel against its plain twin on fitted models:
+    TPS, gaussian, MQ and Wendland bases x LINEAR, CONSTANT and ZERO tails,
+    F in {1, 2, 8, 16, 17} (17 takes two launches), at a ragged V = 70002 +
+    200 far points (radius 1.6, forced nearest-patch fallback) + one point
+    in each patch's coverage-margin shell (0.99995 R); plus a single-patch
+    rig, and one case against the plain f32 evaluate_pu.  Returns the worst
+    relative |d|."""
+    from facedeform_tpu_torch.config import PolyTerm, RBFKernel
+    from facedeform_tpu_torch.geometry.primitives import uv_sphere
+    from facedeform_tpu_torch.ops import cuda_pu, pu
+
+    rng = np.random.default_rng(8)
+    sphere = uv_sphere(250, 280).points                       # V = 70002, ragged
+    rest, frames = _bump_rig(3000, _unit_dirs(17, rng))
+    patches = pu.build_patches(rest)
+    ray = np.float32([0.6, 0.8, 0.0])
+    shell = (patches.centers + ray * patches.radii[:, None] * 0.99995).astype(np.float32)
+    pts_np = np.concatenate([sphere, _unit_dirs(200, rng) * 1.6, shell])
+    pts = torch.as_tensor(pts_np, device=dev)
+    tplan = cuda_pu.plan_eval_tiles(patches, pts_np)
+    n_forced = int((tplan.forced_patch >= 0).sum())
+    worst, n_cases = 0.0, 0
+    grid = [(k, t) for k in (RBFKernel.THIN_PLATE, RBFKernel.GAUSSIAN, RBFKernel.MULTIQUADRIC,
+                             RBFKernel.WENDLAND_C2)
+            for t in (PolyTerm.LINEAR, PolyTerm.CONSTANT, PolyTerm.ZERO)]
+    for kernel, term in grid:
+        models, rep = pu.fit_pu_frames(rest, frames, kernel, term, lam=1e-5, patches=patches,
+                                       device=dev)
+        _check(float(rep.backward_error()) < PU_BACKWARD_TOL,
+               f"pu fit {kernel.name} {term.name}: backward error {float(rep.backward_error()):.3e}")
+        args = (pts, tplan, kernel)
+        want = cuda_pu.evaluate_pu_tiles_reference(models, *args)
+        scale = float(want.abs().max())
+        errs = []
+        for n_frames in (1, 2, 8, 16, 17):
+            got = cuda_pu.evaluate_pu_tiles_frames(models[:n_frames], *args)
+            torch.cuda.synchronize()
+            e = float((got - want[:n_frames]).abs().max()) / scale
+            _check(tuple(got.shape) == (n_frames, len(pts_np), 3) and e <= PU_TOL,
+                   f"pu {kernel.name} {term.name} F={n_frames}: |d| / max|disp| {e:.3e} "
+                   f"(tol {PU_TOL:g})")
+            errs.append(e)
+            n_cases += 1
+        worst = max(worst, *errs)
+        print(f"  pu {kernel.name:12s} {term.name:8s} K={len(patches.radii)} P={patches.idx.shape[1]} "
+              f"|d|/max|disp| F=1/2/8/16/17 " + " ".join(f"{e:.2e}" for e in errs), flush=True)
+    # a single-patch rig (N <= patch_size: K = 1, every far point forced)
+    r1, f1 = _bump_rig(150, ((0, 1, 0), (1, 0, 0), (0, 0, 1)))
+    p1 = pu.build_patches(r1)
+    m1, _ = pu.fit_pu_frames(r1, f1, RBFKernel.THIN_PLATE, lam=1e-5, patches=p1, device=dev)
+    plan1 = cuda_pu.plan_eval_tiles(p1, pts_np)
+    args1 = (pts, plan1, RBFKernel.THIN_PLATE)
+    want1 = cuda_pu.evaluate_pu_tiles_reference(m1, *args1)
+    got1 = cuda_pu.evaluate_pu_tiles_frames(m1, *args1)
+    e1 = float((got1 - want1).abs().max()) / float(want1.abs().max())
+    _check(len(p1.radii) == 1 and e1 <= PU_TOL, f"pu single patch: {e1:.3e}")
+    worst = max(worst, e1)
+    n_cases += 1
+    # against the plain f32 composition (JAX's Mosaic-vs-XLA bound)
+    models, _ = pu.fit_pu_frames(rest, frames[:1], RBFKernel.THIN_PLATE, lam=1e-5,
+                                 patches=patches, device=dev)
+    eplan = pu.plan_eval(patches, pts_np)
+    plain = pu.evaluate_pu(models[0], pts, eplan.tiles_patch, eplan.tiles_vidx, eplan.forced,
+                           RBFKernel.THIN_PLATE, PolyTerm.LINEAR, eplan.num_points,
+                           precise=False)
+    got = cuda_pu.evaluate_pu_tiles(models[0], pts, tplan, RBFKernel.THIN_PLATE)
+    e_plain = float((got - plain).abs().max())
+    _check(e_plain <= PU_PLAIN_TOL, f"pu kernel vs plain evaluate_pu: {e_plain:.3e}")
+    print(f"pu kernel checks: {n_cases} cases within {PU_TOL:g} of max|disp| (worst "
+          f"{worst:.3e}; {n_forced} forced-fallback points, single-patch rig {e1:.3e}); vs "
+          f"plain f32 evaluate_pu max |d| {e_plain:.3e} (tol {PU_PLAIN_TOL:g})", flush=True)
+    return worst
+
+
+def _pu_field64(model, x, chunk=32):
+    """The float64 PU field of a TPS + linear-tail model at float64 points
+    (n, 3), written out: every patch whose support holds the point (0.9999
+    margin), else the nearest relative to its radius; the controls' f32
+    patch-centered coordinates as fitted, the points' offsets in float64
+    (a smooth function of x for central differences)."""
+    c = model.centers.double()
+    rad = model.radii.double()
+    lc = ((model.ctrl - model.centers[:, None]) * model.valid[..., None]).double()
+    val = model.valid.double()
+    w = model.w_hi.double() + model.w_lo.double()
+    pl = model.poly_hi.double() + model.poly_lo.double()
+    ie2 = 1.0 / model.eps.double() ** 2
+    outs = []
+    for xs in torch.split(x, chunk):
+        xl = xs[:, None, :] - c[None]                               # (n, K, 3)
+        t = torch.linalg.norm(xl, dim=-1) / rad
+        wk = torch.clamp(1 - t, min=0) ** 4 * (4 * t + 1)
+        near = torch.nn.functional.one_hot(torch.argmin(t, 1), c.shape[0]).double()
+        wk = torch.where((t <= 0.9999).any(1)[:, None], wk, near)
+        s = ((xl[:, :, None, :] - lc[None]) ** 2).sum(-1) * ie2[None, :, None]
+        phi = torch.where(s > 0, 0.5 * s * torch.log(torch.clamp(s, min=1e-300)),
+                          torch.zeros_like(s)) * val[None]
+        sk = (torch.einsum("nkp,kpc->nkc", phi, w) + pl[None, :, 0]
+              + torch.einsum("nkb,kbc->nkc", xl, pl[:, 1:4]))
+        outs.append((wk[..., None] * sk).sum(1) / wk.sum(1, keepdim=True))
+    return torch.cat(outs)
+
+
+def _pu_pairs(model, pts, tplan, dev) -> int:
+    """Live (point, control) pairs the tile kernel needs: over the plan's
+    items, the points whose partition weight is non-zero times the patch's
+    live controls."""
+    ip, iv, forced, perm, _, _ = tplan.device_arrays(dev)
+    v = tplan.num_points
+    pz = torch.zeros((forced.shape[0], 3), device=dev)
+    pz[:v] = pts[perm.long()]
+    live = model.valid.sum(1)
+    n = 0
+    for s in range(0, ip.shape[0], 4096):
+        k, vt = ip[s:s + 4096].long(), iv[s:s + 4096].long()
+        lanes = vt[:, None] * tplan.tile_v + torch.arange(tplan.tile_v, device=dev)[None]
+        d2 = ((pz[lanes] - model.centers[k][:, None]) ** 2).sum(-1)
+        hit = ((d2 < model.radii[k][:, None] ** 2) | (forced[lanes] == k[:, None])) & (lanes < v)
+        n += int((hit.sum(1) * live[k]).sum())
+    return n
+
+
+def _pu_bound(f, v, vp, k_, p_, n_items, pairs) -> dict:
+    """The PU kernel's bound: per needed pair 3 differences, d2 5, s 1, TPS
+    phi 5, x valid 1, 3F FMAs; bytes: points, perm, forced ids, items,
+    offsets, ctrl, valid, (K, P, 3F) weights, tails, geometry, (F, V, 3)
+    out."""
+    n_bytes = (16 * v + 4 * vp + 4 * n_items + 4 * (vp // 256 + 1) + 16 * k_ * p_
+               + 12 * f * k_ * p_ + 48 * f * k_ + 36 * k_ + 12 * f * v)
+    return _bound(n_bytes, (15 + 6 * f) * pairs, PEAK_F32)
+
+
+def main_path_pu(dev, label: str) -> dict:
+    """Phase 6b: slice F's main path, one pose, at the JAX package's
+    config 9: a 30k-control TPS rig (eps="auto", lam 1e-5),
+    PUDeformer.fit on the card, displacement on the 1M-vertex sphere
+    (one PU launch) and at the controls (one more), with launch counters
+    read around it; the whole output against the plain twin, the float64
+    plain tiles of the same model, and the Jacobian at 65536 vertices
+    against a float64 central difference."""
+    from facedeform_tpu_torch.config import RBFKernel
+    from facedeform_tpu_torch.geometry.primitives import uv_sphere
+    from facedeform_tpu_torch.ops import cuda_pu, pu
+
+    rest, frames = _bump_rig(30000)
+    disp = frames[0] - rest
+    pts_np = uv_sphere(1000, 1000).points
+    pts = torch.as_tensor(pts_np, device=dev)
+    v = pts.shape[0]
+
+    cuda_pu.evaluate_pu_tiles_frames.launches = 0
+    t0 = time.perf_counter()
+    d = pu.PUDeformer.fit(rest, frames[0], kernel=RBFKernel.THIN_PLATE, lam=1e-5, device=dev)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    out = d.displacement(pts)
+    torch.cuda.synchronize()
+    t_disp = time.perf_counter() - t0 - t_fit
+    launches_mesh = cuda_pu.evaluate_pu_tiles_frames.launches
+    at_ctrl = d.displacement(rest)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_pu.evaluate_pu_tiles_frames.launches
+    k_, p_ = d.patches.idx.shape
+    print(f"slice F main path (config 9): {wall:.3f} s wall (PUDeformer.fit of {len(rest)} "
+          f"controls {t_fit:.3f} s: K={k_} patches of P={p_}; displacement at {v} verts incl. "
+          f"the host plan {t_disp:.3f} s; displacement at the controls); PU launches "
+          f"{launches_mesh} for the mesh, {launches} in all  [{label}]", flush=True)
+    _check(launches_mesh == 1 and launches == 2,
+           f"the PU path must launch the tile kernel once per displacement: {launches_mesh}, "
+           f"{launches}")
+    rep = d.report
+    be = float(rep.backward_error())
+    finite = all(bool(torch.isfinite(t).all()) for t in (rep.residual_norm, rep.rhs_norm,
+                                                          rep.scale_norm, rep.col_backward))
+    print(f"PU fit@{len(rest)}: backward error {be:.3e}, col_backward "
+          f"{[f'{float(c):.2e}' for c in rep.col_backward]}")
+    _check(finite and be < PU_BACKWARD_TOL, f"PU fit backward error {be:.3e}")
+    _check(tuple(out.shape) == (v, 3) and bool(torch.isfinite(out).all()),
+           "PU displacement not finite of shape (V, 3)")
+    interp = float((at_ctrl - torch.as_tensor(disp, device=dev)).abs().max())
+    print(f"PU interpolation error at the {len(rest)} controls (kernel): {interp:.3e} "
+          f"(budget {ORACLE_BUDGET:g})")
+    _check(interp < ORACLE_BUDGET, "PU interpolation at the controls misses the budget")
+
+    # the whole output against the plain twin on the same plan
+    t0 = time.perf_counter()
+    tplan = cuda_pu.plan_eval_tiles(d.patches, pts_np)
+    t_plan = time.perf_counter() - t0
+    want = cuda_pu.evaluate_pu_tiles_reference((d.model,), pts, tplan, d.kernel)[0]
+    err_twin = float((out - want).abs().max())
+    scale = float(want.abs().max())
+    n_tiles = len(tplan.item_offsets) - 1
+    print(f"PU kernel at {v} x {len(rest)} vs the plain twin: max |d| {err_twin:.3e} "
+          f"({err_twin / scale:.3e} of max|disp|, tol {PU_TOL:g}); host tile plan "
+          f"{t_plan:.3f} s ({len(tplan.item_patch)} items over {n_tiles} tiles, "
+          f"{len(tplan.item_patch) / n_tiles:.2f} per tile, "
+          f"{int((tplan.forced_patch >= 0).sum())} forced)")
+    _check(err_twin <= PU_TOL * scale, "PU main path disagrees with the plain twin")
+
+    # the same model through the float64 plain tiles (host plan_eval)
+    t0 = time.perf_counter()
+    f64 = d.displacement(pts, precise=True, backend="plain")
+    torch.cuda.synchronize()
+    t_f64 = time.perf_counter() - t0
+    err64 = float((out - f64).abs().max())
+    print(f"PU f32 kernel vs float64 plain tiles at {v} verts: max |d| {err64:.3e} (tol "
+          f"{PU_F64_TOL:g}; float64 route incl. its host plan {t_f64:.3f} s)")
+    _check(err64 <= PU_F64_TOL, "the f32 PU kernel strays from the float64 tiles")
+
+    # the Jacobian at 65536 vertices, 256 of them against float64 differences
+    idx = torch.linspace(0, v - 1, 65536, device=dev).long()
+    jac = d.jacobian(pts[idx])
+    sub = pts[idx[::256]].double()
+    h = 1e-5
+    fd = torch.zeros((sub.shape[0], 3, 3), dtype=torch.float64, device=dev)
+    for b in range(3):
+        step = torch.zeros(3, dtype=torch.float64, device=dev)
+        step[b] = h
+        fd[:, :, b] = (_pu_field64(d.model, sub + step) - _pu_field64(d.model, sub - step)) / (2 * h)
+    e_jac = float((jac[::256].double() - fd).abs().max()) / float(fd.abs().max())
+    print(f"PU jacobian at {len(idx)} verts: finite {bool(torch.isfinite(jac).all())}; vs "
+          f"float64 central difference on {sub.shape[0]}: {e_jac:.3e} of max|J| "
+          f"{float(fd.abs().max()):.3e} (tol {PU_JAC_FD_TOL:g})")
+    _check(bool(torch.isfinite(jac).all()) and e_jac <= PU_JAC_FD_TOL,
+           "the PU Jacobian disagrees with the float64 central difference")
+    return {"launches": launches, "deformer": d, "points": pts, "points_np": pts_np,
+            "tplan": tplan, "rest": rest, "disp": disp, "err_twin": err_twin}
+
+
+def main_path_pu_shot(dev, label: str) -> dict:
+    """Phase 6c: slice F's shot at the JAX package's config 10: 20k
+    controls x 8 bump poses, PUSeqDeformer.fit (one shared factorization),
+    displacement_frames and apply_seq (capture d2, group gate, tangent
+    frame) on the 1M-vertex sphere with launch counters read around them;
+    every frame against a single-pose kernel run of its model, the whole
+    shot against the plain twin, apply_seq against its plain composition,
+    interpolation at the controls."""
+    from facedeform_tpu_torch.config import DeformConfig, DeformParams, RBFKernel
+    from facedeform_tpu_torch.geometry.primitives import uv_sphere
+    from facedeform_tpu_torch.ops import cuda_pu, pu
+    from facedeform_tpu_torch.ops.falloff import falloff_weight
+    from facedeform_tpu_torch.ops.tangent import project_to_tangents
+
+    centers = ((0, 1, 0), (1, 0, 0), (0, 0, 1), (0, -1, 0), (-1, 0, 0), (0, 0, -1),
+               (0.7, 0.7, 0), (0, 0.7, 0.7))
+    rest, frames = _bump_rig(20000, centers)
+    n_frames = len(centers)
+    pts_np = uv_sphere(1000, 1000).points
+    pts = torch.as_tensor(pts_np, device=dev)
+    v = pts.shape[0]
+    cap_d2 = torch.sum((pts - torch.tensor([0.0, 1.0, 0.0], device=dev)) ** 2, -1)
+    gate = (pts[:, 0] > -0.6).float()
+    frame = _sphere_frame(pts)
+    cfg, params = DeformConfig(tangent=True), DeformParams(radius=1.2, falloffrate=1.5)
+
+    cuda_pu.evaluate_pu_tiles_frames.launches = 0
+    t0 = time.perf_counter()
+    seq = pu.PUSeqDeformer.fit(rest, frames, kernel=RBFKernel.THIN_PLATE, lam=1e-5, device=dev)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    out = seq.displacement_frames(pts)
+    pos, w = seq.apply_seq(pts, cap_d2, gate, cfg, params, frame=frame)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cuda_pu.evaluate_pu_tiles_frames.launches
+    print(f"slice F shot (config 10): {wall:.3f} s wall (PUSeqDeformer.fit of {n_frames} poses "
+          f"x {len(rest)} controls {t_fit:.3f} s, displacement_frames + apply_seq at {v} "
+          f"verts); PU launches {launches}  [{label}]", flush=True)
+    _check(launches == 2, f"displacement_frames and apply_seq must launch once each: {launches}")
+    be = float(seq.report.backward_error())
+    print(f"PU shot fit: backward error {be:.3e}, worst column "
+          f"{float(seq.report.col_backward.max()):.3e}")
+    _check(be < PU_BACKWARD_TOL, "PU shot fit backward error")
+    _check(tuple(out.shape) == (n_frames, v, 3) and bool(torch.isfinite(out).all())
+           and tuple(pos.shape) == (n_frames, v, 3) and bool(torch.isfinite(pos).all()),
+           "PU shot output not finite of shape (F, V, 3)")
+
+    tplan = cuda_pu.plan_eval_tiles(seq.patches, pts_np)
+    models = tuple(p.model for p in seq.puds)
+    want = cuda_pu.evaluate_pu_tiles_reference(models, pts, tplan, seq.kernel)
+    scale = float(want.abs().max())
+    err_twin = float((out - want).abs().max())
+    worst = 0.0
+    for f in range(n_frames):
+        single = seq.puds[f].displacement(pts, plan=tplan)
+        worst = max(worst, float((out[f] - single).abs().max()))
+    fw, _ = falloff_weight(cap_d2, params.radius, params.falloffrate)
+    fw = fw * gate
+    plain = pts[None] + torch.stack([project_to_tangents(*frame, want[f])
+                                     for f in range(n_frames)]) * fw[None, :, None]
+    err_seq = float((pos - plain).abs().max())
+    at_ctrl = seq.displacement_frames(rest)
+    interp = float((at_ctrl - torch.as_tensor(frames - rest[None], device=dev)).abs().max())
+    print(f"PU shot at {v} x {len(rest)} x {n_frames}: vs the plain twin max |d| {err_twin:.3e} "
+          f"({err_twin / scale:.3e} of max|disp|); frames vs single-pose kernel runs max |d| "
+          f"{worst:.3e} (tol {FRAME_VS_SINGLE_TOL:g}); apply_seq vs its plain composition "
+          f"{err_seq:.3e}, falloff equal {bool(torch.equal(w, fw))}; interpolation at the "
+          f"controls {interp:.3e}")
+    _check(err_twin <= PU_TOL * scale, "the PU shot disagrees with the plain twin")
+    _check(worst <= FRAME_VS_SINGLE_TOL, "a PU shot frame disagrees with its single-pose run")
+    _check(err_seq <= PU_TOL * scale and bool(torch.equal(w, fw)),
+           "apply_seq disagrees with its plain composition")
+    _check(interp < ORACLE_BUDGET, "PU shot interpolation at the controls misses the budget")
+    return {"launches": launches, "seq": seq, "points": pts, "tplan": tplan, "rest": rest,
+            "frames": frames}
+
+
+def _profile(fn, label: str, top: int = 10) -> None:
+    """torch.profiler of one call: device kernel rows by self device time,
+    device busy share of the wall, and whether MAGMA kernels ran."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(  # noqa: E731
+        e, "self_cuda_time_total", 0)
+    rows = [e for e in prof.key_averages() if dev_us(e) > 0 and not e.key.startswith("aten::")]
+    rows.sort(key=dev_us, reverse=True)
+    busy = sum(dev_us(e) for e in rows) / 1e3
+    magma = [e.key for e in rows if "magma" in e.key.lower()]
+    print(f"profile {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms (idle share "
+          f"{max(0.0, 1 - busy / wall):.3f}); MAGMA kernels: {len(magma)} "
+          f"({', '.join(sorted(set(magma))[:4]) or 'none'})")
+    for e in rows[:top]:
+        print(f"  {dev_us(e) / 1e3:10.3f} ms  x{e.count:<5d} {e.key[:110]}")
+
+
+def time_pu(main_f: dict, shot: dict, label: str) -> list:
+    """Phase 7d: the PU kernel against its plain twin at 1M x 30k (one
+    pose) and 1M x 20k x 8 frames; host-clock walls of the fits
+    (PUDeformer.fit at 30k beside its parts; fit_pu_frames at 20k x 8
+    beside 8 fit_pu), the host builds, a cached-plan displacement, the
+    kernel's call and its operand packing; profiles of the 30k fit, the
+    kernel's call and the cached-plan displacement."""
+    from facedeform_tpu_torch.benchmark import stats, time_cuda
+    from facedeform_tpu_torch.config import RBFKernel
+    from facedeform_tpu_torch.ops import cuda_pu, pu
+
+    d, pts, tplan = main_f["deformer"], main_f["points"], main_f["tplan"]
+    dev = pts.device
+    v = pts.shape[0]
+    seq, splan = shot["seq"], shot["tplan"]
+    models = tuple(p.model for p in seq.puds)
+    one = lambda: cuda_pu.evaluate_pu_tiles(d.model, pts, tplan, d.kernel)  # noqa: E731
+    fns = {
+        "pu kernel": one,
+        "pu twin": lambda: cuda_pu.evaluate_pu_tiles_reference((d.model,), pts, tplan, d.kernel),
+        "pu kernel F=8": lambda: cuda_pu.evaluate_pu_tiles_frames(models, pts, splan, seq.kernel),
+        "pu twin F=8": lambda: cuda_pu.evaluate_pu_tiles_reference(models, pts, splan, seq.kernel),
+    }
+    t = {k: stats(x) for k, x in time_cuda(fns, rounds=3, iters={
+        "pu kernel": 10, "pu twin": 1, "pu kernel F=8": 5, "pu twin F=8": 1}).items()}
+    n30, n20 = len(main_f["rest"]), len(shot["rest"])
+    for k, x in t.items():
+        shape = f"{v} x {n20} x 8 frames" if "F=8" in k else f"{v} x {n30}"
+        print(_fmt(k, x, f" at {shape}  [{label}]"))
+    pairs1 = _pu_pairs(d.model, pts, tplan, dev)
+    pairs8 = _pu_pairs(models[0], pts, splan, dev)
+    k1, p1 = d.model.valid.shape
+    k8, p8 = models[0].valid.shape
+    b1 = _pu_bound(1, v, len(tplan.forced_patch), k1, p1, len(tplan.item_patch), pairs1)
+    b8 = _pu_bound(8, v, len(splan.forced_patch), k8, p8, len(splan.item_patch), pairs8)
+    for name, pairs, b, ms, plain_ms in (
+            (f"{v} x {n30}", pairs1, b1, t["pu kernel"][0], t["pu twin"][0]),
+            (f"{v} x {n20} x 8 frames", pairs8, b8, t["pu kernel F=8"][0], t["pu twin F=8"][0])):
+        print(f"PU kernel at {name}: {pairs} needed pairs ({pairs / ms / 1e6:.1f} Gpairs/s), "
+              f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bound_ms'] / ms * 100:.1f}% "
+              f"of the kernel's time); the twin takes {plain_ms / ms:.2f}x")
+
+    # fits, host builds and the cached-plan displacement: host-clock walls
+    # around work ending in a synchronize, one warm-up each, then rounds
+    # interleaved across them so a fit and its parts see the same host
+    rest, disp = main_f["rest"], main_f["disp"]
+    srest, sframes = shot["rest"], shot["frames"]
+    tps = RBFKernel.THIN_PLATE
+    fit30 = lambda: pu.fit_pu(rest, rest + disp, tps, lam=1e-5,  # noqa: E731
+                              patches=d.patches, device=dev)
+    walls = {
+        "PUDeformer.fit 30k": lambda: pu.PUDeformer.fit(rest, rest + disp, kernel=tps, lam=1e-5,
+                                                        device=dev),
+        "build_patches 30k (host)": lambda: pu.build_patches(rest),
+        "fit_pu 30k (patches given)": fit30,
+        "build_patches + fit_pu 30k (one call)": lambda: pu.fit_pu(
+            rest, rest + disp, tps, lam=1e-5, patches=pu.build_patches(rest), device=dev),
+        "fit_pu_frames 20k x 8": lambda: pu.fit_pu_frames(srest, sframes, tps, lam=1e-5,
+                                                          patches=seq.patches, device=dev),
+        "fit_pu x 8 at 20k": lambda: [pu.fit_pu(srest, f, tps, lam=1e-5, patches=seq.patches,
+                                                device=dev) for f in sframes],
+        "plan_eval_tiles 1M (host)": lambda: cuda_pu.plan_eval_tiles(d.patches,
+                                                                      main_f["points_np"]),
+        "PUDeformer.displacement 1M (plan cached)": lambda: d.displacement(pts),
+        # the cache hit alone (build is not called): the points' copy to the
+        # host and the blake2b digest that keys the cache
+        "plan-cache lookup 1M (host copy + digest)": lambda: d._cached_plan(
+            pu._host(pts), "tiles", None),
+        "evaluate_pu_tiles 1M x 30k": one,
+        "operand packing 30k (_pack_frames_operands)": lambda: cuda_pu._pack_frames_operands(
+            (d.model,)),
+    }
+    ts = {k: [] for k in walls}
+    for fn in walls.values():
+        fn()
+    for _ in range(PU_WALL_ROUNDS):
+        for k, fn in walls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts[k].append((time.perf_counter() - t0) * 1e3)
+    for k, x in ts.items():
+        print(_fmt(k, stats(x), f" wall, {PU_WALL_ROUNDS} interleaved rounds  [{label}]"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    fit30()
+    torch.cuda.synchronize()
+    print(f"fit_pu 30k peak device memory {(torch.cuda.max_memory_allocated(dev) - base) / 1e9:.3f}"
+          f" GB (K={k1}, P={p1})")
+    _profile(fit30, "fit_pu 30k")
+    _profile(one, f"pu kernel {v} x {n30}", top=3)
+    _profile(lambda: d.displacement(pts), f"PUDeformer.displacement {v} (plan cached)", top=3)
+    return [
+        {"name": "pu_tiles", "route": "cuda",
+         "source": "facedeform_tpu_torch/csrc/pu.cu",
+         "replaces": "facedeform_tpu/ops/pallas_pu.py:412",
+         "launches": main_f["launches"] + shot["launches"], "max_abs_err": main_f["err_twin"],
+         "ms": t["pu kernel"][0], "plain_ms": t["pu twin"][0], **b1, "library_ms": None},
     ]
 
 
@@ -1207,11 +1755,14 @@ def main() -> int:
     check_jacobian_kernel(dev)
     check_precise_kernel(dev)
     check_diff_kernel(dev)
+    check_pu_kernel(dev)
     main = main_path(dev, label)
     main_b = main_path_frames(dev, label)
     main_c = main_path_precise(dev, label)
+    main_f = main_path_pu(dev, label)
+    shot_f = main_path_pu_shot(dev, label)
     kernels = (time_kernels(main, label) + time_frames(main_b, label)
-               + time_precise(main_c, label))
+               + time_precise(main_c, label) + time_pu(main_f, shot_f, label))
     record = benchmark.run_headline()
     print("headline:", json.dumps(record), flush=True)
 

@@ -60,9 +60,12 @@ class Deformer:
         rig count mismatch and SolveFailedError on solver blow-up.
         """
         if cfg.solver == "pu":
+            # the PU model is a different artifact (patch tensors, not an
+            # RBFModel); the dense route would not fit at the rig sizes PU
+            # exists for
             raise ValueError(
-                "solver='pu' is not a Deformer route — the partition-of-unity "
-                "model is a different artifact (not ported yet)"
+                "solver='pu' is not a Deformer route — use "
+                "ops.pu.PUDeformer.fit (or ops.pu.PUSeqDeformer.fit for a shot)"
             )
         rest_ctrl = torch.as_tensor(rest_ctrl, dtype=torch.float32, device=device)
         deformed_ctrl = torch.as_tensor(deformed_ctrl, dtype=torch.float32, device=device)

@@ -14,8 +14,9 @@ A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; it never falls back.  Each
 wrapper counts its launches in its `launches` attribute.
 
-The kernels (these, csrc/jacobian.cu's in ops/cuda_jacobian.py and
-csrc/precise.cu's in ops/cuda_precise.py) are compiled with nvcc for
+The kernels (these, csrc/jacobian.cu's in ops/cuda_jacobian.py,
+csrc/precise.cu's in ops/cuda_precise.py and csrc/pu.cu's in
+ops/cuda_pu.py) are compiled with nvcc for
 sm_90a at first use, from the sources in csrc/ alone, one nvcc per source
 started together, then linked into one library in csrc/build/ under a
 name keyed by a hash of the sources and flags (a stale library is never
@@ -127,6 +128,8 @@ def build() -> str:
     lib.fd_jacobian.restype = i32
     lib.fd_eval_precise.argtypes = [ptr] * 12 + [i32] * 5 + [f32, f32, ptr]
     lib.fd_eval_precise.restype = i32
+    lib.fd_pu_tiles.argtypes = [ptr] * 12 + [i32] * 8 + [ptr]
+    lib.fd_pu_tiles.restype = i32
     _lib = lib
     return log
 

@@ -11,7 +11,9 @@ float64 directly.  The f32 LU, the double-float solution pair
 
 Growing kernels solve against the float64 system split into f32 words
 (assemble.assemble_system_df): lu_solve_refined_against_df factors a_hi
-and refines by GMRES-IR with float64 residuals against a_hi + a_lo.
+and refines by GMRES-IR with float64 residuals against a_hi + a_lo, or
+stationarily (gmres_ir=False) for the well-conditioned batched patch
+systems of the partition-of-unity fit (ops/pu.py).
 """
 
 from __future__ import annotations
@@ -152,35 +154,49 @@ def lu_resolve_refined_df(
 
 
 def _map_col_blocks(refine_fn, b: torch.Tensor, kb: int = 3):
-    """refine_fn((n, kb) block) -> (x_hi, x_lo, r) over b's columns in
+    """refine_fn((..., n, kb) block) -> (x_hi, x_lo, r) over b's columns in
     consecutive kb-column groups, run one after another.  GMRES ends on its
     `any`-column test, so the block width is part of the result: kb = 3
     keeps one pose's xyz together (the packed frames layout is frame-major
     3-column groups).  Each block is made contiguous, so a pose solves
-    exactly as its own (n, 3) right-hand side would."""
-    k = b.shape[1]
+    exactly as its own (n, 3) right-hand side would.  A leading batch axis
+    (one system per patch) rides along."""
+    k = b.shape[-1]
     if k <= kb:
         return refine_fn(b.contiguous())
-    outs = [refine_fn(blk.contiguous()) for blk in torch.split(b, kb, dim=1)]
-    return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+    outs = [refine_fn(blk.contiguous()) for blk in torch.split(b, kb, dim=-1)]
+    return tuple(torch.cat(parts, dim=-1) for parts in zip(*outs))
 
 
-def _lu_against_df_impl(a_hi, a_lo, b, n_refine, lu_piv=None):
+def _lu_against_df_impl(a_hi, a_lo, b, n_refine, gmres_ir=True, lu_piv=None):
     """Solve (a_hi + a_lo) X = b with an f32 LU of a_hi (factored here
     unless (lu, piv) are given) and the solution kept as (x_hi, x_lo).
 
-    Each sweep's residual b - (a_hi + a_lo)(x_hi + x_lo) is float64 and
-    its correction equation is solved by LU-preconditioned GMRES (GMRES-IR,
-    Carson & Higham), which converges where stationary refinement stalls
-    at cond * u ~ 1; its f32 operator is a_hi @ v + a_lo @ v as two
-    separate products, never (a_hi + a_lo) @ v, whose f32 sum would round
-    a_lo away.  Returns ((x_hi, x_lo), report)."""
+    Each sweep's residual b - (a_hi + a_lo)(x_hi + x_lo) is float64.  With
+    gmres_ir its correction equation is solved by LU-preconditioned GMRES
+    (GMRES-IR, Carson & Higham), which converges where stationary
+    refinement stalls at cond * u ~ 1; its f32 operator is
+    a_hi @ v + a_lo @ v as two separate products, never (a_hi + a_lo) @ v,
+    whose f32 sum would round a_lo away.  Without it, each sweep is one
+    LU-preconditioned correction (stationary refinement).
+
+    a_hi, a_lo (K, n, n) and b (K, n, k) carry a batch of K systems (the
+    partition-of-unity patches); the stationary sweeps run batched, GMRES-IR
+    one system after another.  Returns ((x_hi, x_lo), report), the
+    report's fields with the leading K axis."""
     from facedeform_tpu_torch.ops.krylov import gmres
 
     a_hi, a_lo, b = a_hi.float(), a_lo.float(), b.float()
-    a64 = a_hi.double() + a_lo.double()
     with highest_precision():
         lu, piv = lu_factor_hp(a_hi) if lu_piv is None else lu_piv
+    if gmres_ir and a_hi.ndim == 3:
+        outs = [_lu_against_df_impl(a_hi[i], a_lo[i], b[i], n_refine, True, (lu[i], piv[i]))
+                for i in range(a_hi.shape[0])]
+        x_hi = torch.stack([o[0][0] for o in outs])
+        x_lo = torch.stack([o[0][1] for o in outs])
+        return (x_hi, x_lo), SolveReport(*(torch.stack(f) for f in zip(*[o[1] for o in outs])))
+    a64 = a_hi.double() + a_lo.double()
+    with highest_precision():
 
         def msolve(v):
             return torch.linalg.lu_solve(lu, piv, v)
@@ -194,23 +210,31 @@ def _lu_against_df_impl(a_hi, a_lo, b, n_refine, lu_piv=None):
             x_lo = torch.zeros_like(x_hi)
             for _ in range(n_refine):
                 r = _residual64(a64, x_hi, x_lo, b64)
-                dx, _ = gmres(matvec, r, msolve, restart=16, max_restarts=2)
+                if gmres_ir:
+                    dx, _ = gmres(matvec, r, msolve, restart=16, max_restarts=2)
+                else:
+                    dx = msolve(r)
                 x_hi, e = _two_sum(x_hi, dx)
                 x_lo = x_lo + e
             return x_hi, x_lo, _residual64(a64, x_hi, x_lo, b64)
 
         x_hi, x_lo, r = _map_col_blocks(refine, b)
-    report = _report_from(torch.linalg.norm(a_hi), torch.diagonal(lu), x_hi, b, r)
+    report = _report_from(torch.linalg.norm(a_hi, dim=(-2, -1)),
+                          torch.diagonal(lu, dim1=-2, dim2=-1), x_hi, b, r)
     return (x_hi, x_lo), report
 
 
 def lu_solve_refined_against_df(
     a_hi: torch.Tensor, a_lo: torch.Tensor, b: torch.Tensor, n_refine: int = 3,
+    gmres_ir: bool = True,
 ) -> tuple[tuple[torch.Tensor, torch.Tensor], SolveReport]:
     """Solve (A_hi + A_lo) X = B (assemble_system_df's pair) with an f32 LU
-    of A_hi and GMRES-IR.  The JAX package's stationary option
-    (gmres_ir=False) serves the unported partition-of-unity route."""
-    return _lu_against_df_impl(a_hi, a_lo, b, n_refine)
+    of A_hi and float64-residual refinement: GMRES-IR, or with
+    gmres_ir=False stationary refinement, which needs ~30x fewer triangular
+    solves a sweep but contracts only while cond * u < 1 (the
+    partition-of-unity patches at their spacing-scale radius, cond ~2e6).
+    A leading batch axis on all three solves K systems at once."""
+    return _lu_against_df_impl(a_hi, a_lo, b, n_refine, gmres_ir)
 
 
 def lu_resolve_refined_against_df(

@@ -1,5 +1,5 @@
 """PyTorch port: importing the package and every module of the port pulls
-in no JAX and builds nothing."""
+in no JAX and nothing of the JAX package, and builds nothing."""
 
 import subprocess
 import sys
@@ -18,13 +18,15 @@ def test_import_loads_no_jax_and_builds_nothing(tmp_path):
         "import facedeform_tpu_torch.parallel.batched\n"
         "import facedeform_tpu_torch.ops.cuda_precise as cp\n"
         "import facedeform_tpu_torch.ops.krylov, facedeform_tpu_torch.ops.precise_eval\n"
-        "jax = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib')]\n"
+        "import facedeform_tpu_torch.ops.pu, facedeform_tpu_torch.ops.cuda_pu as cpu_\n"
+        "jax = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'facedeform_tpu')]\n"
         "assert not jax, jax\n"
         "assert ce._lib is None\n"
         "assert (ce.evaluate_cuda.launches, ce.evaluate_cuda_culled.launches) == (0, 0)\n"
         "assert ce.evaluate_cuda_frames.launches == 0\n"
         "assert (cp.evaluate_cuda_precise.launches, ce.evaluate_cuda_diff.launches) == (0, 0)\n"
         "assert (cj.jacobian_cuda.launches, cj.jacobian_cuda_frames.launches) == (0, 0)\n"
+        "assert cpu_.evaluate_pu_tiles_frames.launches == 0\n"
     )
     build = REPO / "facedeform_tpu_torch" / "csrc" / "build"
     before = sorted(build.glob("*")) if build.exists() else []
