@@ -20,7 +20,12 @@
    - float64 precise eval: L in {1, 3}, strict_parity both ways, 33%
      capture-active plus a group gate, lo words present and absent, plus
      fitted TPS/MQ/linear/cubic models on which the f32 dense kernel must
-     miss the bound (so the bound tells float64 from f32);
+     miss the bound (so the bound tells float64 from f32); its frames
+     launches, TPS/MQ/linear/cubic x L in {1, 3} x lo words present and
+     absent x F in {1, 2, 4, 8, 9} (9 crosses the 8-frame launch chunk),
+     every frame equal to its single-pose launch bit for bit; its table-
+     driven thin-plate log against float64 torch.log over [5e-324, 9e307]
+     (4 ulp where |log s| >= 1, 4 x 2^-52 elsewhere);
    - the custom-VJP eval (dense kernel forward, plain backward): gradients
      w.r.t. w_rbf and points at 65536 x 1000, gaussian and TPS;
    - the partition-of-unity tile kernel on fitted 3000-control rigs: TPS,
@@ -45,11 +50,12 @@
    Deformer.fit of 4096 Fibonacci controls (float64 assembly, GMRES-IR)
    and apply("auto") on the 1M-vertex sphere with a capture d2, a tangent
    frame and a group gate (one precise launch each), a 4-pose TPS shot
-   through batched.deform_frames (one precise launch per frame) and one
-   gradient through the custom-VJP eval, with launch counters read around
-   it; each apply's whole output, each shot frame and the gradient
-   against their plain twins, displacements against a float64 solve of
-   the same systems, each shot frame against the single-pose precise path;
+   through batched.fit_frames + apply_frames (ceil(4 / 8) = 1 precise
+   frames launch) and one gradient through the custom-VJP eval, with
+   launch counters read around it; each apply's whole output, each shot
+   frame and the gradient against their plain twins, displacements
+   against a float64 solve of the same systems, each shot frame against
+   its single-pose launch (bit for bit) and the single-pose precise path;
 6b. runs slice F's main path, partition-of-unity rigs (the JAX package's
    benchmark configs 9 and 10): PUDeformer.fit of 30k TPS controls and
    displacement on the 1M-vertex sphere (one PU launch) and at the
@@ -61,7 +67,9 @@
 7. times fit, each kernel and its plain version, the frames kernel against
    8 dense launches, F = 8/11/16/17/32 per frame, both fit_frames routes,
    the precise kernel against its plain twin and the f32 dense kernel at
-   1M x 4096 and 1M x 1000, the float64-route fits at 4096 and the
+   1M x 4096 and 1M x 1000, its frames launch against 4 and 8 single-pose
+   launches at 1M x 4096 in the same rounds, its single-pose launch per
+   basis (TPS/MQ/linear/cubic), the float64-route fits at 4096 and the
    custom-VJP eval's forward + backward, the PU kernel against its twin at
    1M x 30k and 1M x 20k x 8 frames, the PU fits and host plan builds, and
    profiles of the 30k PU fit and the PU kernel
@@ -72,7 +80,10 @@
    field), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
-Any failed check raises, so the script exits non-zero.
+Any failed check raises, so the script exits non-zero.  The option
+--precise-bases runs the precise kernel's per-basis timing alone (no
+final record), so that a parent commit's package can be timed by the
+same code.
 """
 
 from __future__ import annotations
@@ -138,12 +149,14 @@ PU_JAC_FD_TOL = 1e-4
 PU_WALL_ROUNDS = 7
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet) for the bound_ms of the
-# kernels line: f32 and fp64 outside the tensor cores, device memory.
-# Operations are counted per pair from each kernel's source, a
-# transcendental (exp, log, sqrt) as one operation and an FMA as two, so
-# the operation bound is a lower bound.
+# kernels line: f32 and fp64 outside the tensor cores, fp64 on the tensor
+# cores (DMMA, IEEE fp64: the rate a contraction of many columns can
+# reach), device memory.  Operations are counted per pair from each
+# kernel's source, a transcendental (exp, log, sqrt) as one operation and
+# an FMA as two, so the operation bound is a lower bound.
 PEAK_F32 = 67e12
 PEAK_F64 = 34e12
+PEAK_F64_TC = 67e12
 PEAK_BYTES = 3.35e12
 
 
@@ -152,11 +165,12 @@ def _check(ok: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def _bound(n_bytes: float, n_ops: float, peak: float) -> dict:
-    """bound_ms (the larger of bytes / memory rate and operations / peak)
-    and which of the two binds."""
+def _bound(n_bytes: float, *work: tuple[float, float]) -> dict:
+    """bound_ms (the larger of bytes / memory rate and the sum of
+    operations / peak over the (operations, peak) parts of `work`) and
+    which of the two binds."""
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = n_ops / peak * 1e3
+    t_ops = sum(n_ops / peak for n_ops, peak in work) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -680,12 +694,12 @@ def time_kernels(main: dict, label: str) -> list:
          "replaces": "facedeform_tpu/ops/pallas_eval.py:349",
          "launches": main["launches"]["dense"], "max_abs_err": errs["dense"],
          "ms": times["dense"][0], "plain_ms": times["plain"][0],
-         **_bound(n_bytes, 17 * v * n, PEAK_F32), "library_ms": None},
+         **_bound(n_bytes, (17 * v * n, PEAK_F32)), "library_ms": None},
         {"name": "eval_culled", "route": "cuda", "source": src,
          "replaces": "facedeform_tpu/ops/pallas_eval.py:868",
          "launches": main["launches"]["culled"], "max_abs_err": errs["culled"],
          "ms": times["culled"][0], "plain_ms": times["plain"][0],
-         **_bound(n_bytes, 17 * culled_pairs, PEAK_F32), "library_ms": None},
+         **_bound(n_bytes, (17 * culled_pairs, PEAK_F32)), "library_ms": None},
     ]
 
 
@@ -803,7 +817,7 @@ def time_frames(main_b: dict, label: str) -> list:
          "launches": main_b["launches"]["evaluate_cuda_frames"], "max_abs_err": err_frames,
          "ms": t["frames"][0], "plain_ms": t["frames plain"][0],
          **_bound(24 * v + 12 * f * v + 16 * n + 12 * f * n + 48 * f,
-                  (11 + 6 * f) * v * n, PEAK_F32), "library_ms": None},
+                  ((11 + 6 * f) * v * n, PEAK_F32)), "library_ms": None},
         # per pair: d2 8, s 1, phi' 2, g 2, per frame 3 x (mul, add, 3 FMAs)
         {"name": "jacobian", "route": "cuda",
          "source": "facedeform_tpu_torch/csrc/jacobian.cu",
@@ -812,8 +826,8 @@ def time_frames(main_b: dict, label: str) -> list:
          + main_b["launches"]["jacobian_cuda_frames"],
          "max_abs_err": max(err_jac, err_jac1),
          "ms": jt["jacobian F=8"][0], "plain_ms": jt["jacobian plain F=8"][0],
-         **_bound(12 * v + 36 * f * v + 16 * n + 12 * f * n, (13 + 24 * f) * v * n,
-                  PEAK_F32), "library_ms": None},
+         **_bound(12 * v + 36 * f * v + 16 * n + 12 * f * n,
+                  ((13 + 24 * f) * v * n, PEAK_F32)), "library_ms": None},
     ]
 
 
@@ -933,6 +947,102 @@ def check_precise_kernel(dev) -> float:
           f"models the f32 dense kernel misses the bound on every model and dropping the "
           f"lo words on at least one (worst {worst_no_lo:.3e})", flush=True)
     return worst[0]
+
+
+def check_precise_frames_kernel(dev) -> float:
+    """Phase 3d (frames): the precise kernel's frames launches against the
+    frames twin, TPS/MQ/linear/cubic x L in {1, 3} x lo words present and
+    absent x F in {1, 2, 4, 8, 9} (9 crosses the 8-frame launch chunk), at
+    ragged V = 70002 x 1000 controls with a tangent frame, 33% capture-
+    active plus a group gate; every frame of every launch equal to the
+    single-pose launch of that frame bit for bit.  Returns the worst
+    |dpos|."""
+    from facedeform_tpu_torch.config import PolyTerm
+    from facedeform_tpu_torch.ops import cuda_eval, cuda_precise
+    from facedeform_tpu_torch.ops.fit import GROWING_KERNELS
+
+    rng = np.random.default_rng(8)
+    pts, frame = _ragged_points(dev, rng)
+    dist2 = torch.sum((pts - torch.tensor([0.0, 1.05, 0.0], device=dev)) ** 2, -1)
+    radius = float(torch.quantile(dist2, 0.33).sqrt())       # 33% active
+    gate = (pts[:, 0] > -0.6).float()                        # a group gate
+    worst, n_cases = 0.0, 0
+    for kernel in GROWING_KERNELS:
+        for n_layers in (1, 3):
+            base = _frames_model(1000, n_layers, 9, kernel, rng, dev)
+            for model in (base, _with_lo(base, rng, dev)):
+                args = (pts, dist2, gate, radius, 1.5, kernel, PolyTerm.LINEAR)
+                want_p, want_w = cuda_precise.evaluate_precise_frames_reference(
+                    model, *args, frame=frame)
+                singles = [cuda_precise.evaluate_cuda_precise(
+                    cuda_eval.frame_model(model, f), *args, frame=frame) for f in range(9)]
+                group = 0.0
+                for n_frames in (1, 2, 4, 8, 9):
+                    got_p, got_w = cuda_precise.evaluate_cuda_precise_frames(
+                        cuda_eval.frame_model(model, slice(0, n_frames)), *args, frame=frame)
+                    torch.cuda.synchronize()
+                    dp = float(torch.max(torch.abs(got_p - want_p[:n_frames])))
+                    dw = float(torch.max(torch.abs(got_w - want_w)))
+                    equal = all(bool(torch.equal(got_p[f], singles[f][0]))
+                                for f in range(n_frames)) and bool(
+                        torch.equal(got_w, singles[0][1]))
+                    _check(tuple(got_p.shape) == (n_frames, pts.shape[0], 3)
+                           and dp <= PRECISE_POS_TOL and dw <= FALLOFF_TOL and equal,
+                           f"precise frames {kernel.name} L={n_layers} F={n_frames} "
+                           f"lo={model.w_rbf_lo is not None}: |dpos| {dp:.3e} (tol "
+                           f"{PRECISE_POS_TOL:g}), |dfalloff| {dw:.3e}, every frame equal to "
+                           f"its single-pose launch {equal}")
+                    group = max(group, dp)
+                    n_cases += 1
+                worst = max(worst, group)
+                print(f"  precise frames {kernel.name:12s} L={n_layers} lo="
+                      f"{model.w_rbf_lo is not None!s:5s} F 1/2/4/8/9: max|dpos| {group:.3e}, "
+                      f"frames equal to single-pose launches", flush=True)
+    print(f"precise frames checks: {n_cases} cases within {PRECISE_POS_TOL:g} of the frames "
+          f"twin, every frame bit for bit its single-pose launch; worst |dpos| {worst:.3e}",
+          flush=True)
+    return worst
+
+
+def check_device_log(dev) -> dict:
+    """Phase 3d (log): the precise kernel's thin-plate log (its device
+    function, through a probe launch) against float64 torch.log on the
+    card and the numpy model of it: within 4 ulp of log s where |log s| >=
+    1, 4 x 2^-52 absolute elsewhere, over a log-spaced sweep of [1e-30,
+    1e8] and the edge cases (powers of two, 1 +- a few ulp, subnormals, the
+    table's range edges).  Returns the worst errors."""
+    from facedeform_tpu_torch.ops import cuda_precise
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    j = torch.arange(256, **f64)
+    edges = torch.cat([1.0 + (j - 0.5) / 256, 0.5 + (j - 0.5) / 512,
+                       torch.tensor([0.75 - 2.0 ** -10, 1.5 - 2.0 ** -9, 1.0 - 2.0 ** -10,
+                                     1.0 + 2.0 ** -9], **f64)])
+    inf = torch.full_like(edges, float("inf"))
+    edges = torch.cat([edges, torch.nextafter(edges, -inf), torch.nextafter(edges, inf)])
+    tiny = torch.tensor(5e-324, **f64)
+    s = torch.cat([
+        torch.logspace(-30, 8, 4_000_001, **f64),
+        2.0 ** torch.arange(-1074, 1024, **f64),
+        1.0 + torch.arange(-64, 65, **f64) * 2.0 ** -53,
+        tiny * torch.cat([torch.arange(1, 4096, **f64), 2.0 ** torch.arange(12, 52, **f64)]),
+        edges, edges * 2.0 ** 40, edges * 2.0 ** -70,
+    ])
+    got = cuda_precise.device_log(s)
+    ref = torch.log(s)
+    err = torch.abs(got - ref)
+    big = torch.abs(ref) >= 1.0
+    ulp = torch.nextafter(torch.abs(ref), torch.full_like(ref, float("inf"))) - torch.abs(ref)
+    rel = float((err[big] / ulp[big]).max())
+    absolute = float((err[~big] / 2.0 ** -52).max())
+    model = torch.as_tensor(cuda_precise.device_log_model(s.cpu().numpy()), device=dev)
+    vs_model = float(torch.max(torch.abs(got - model)))
+    print(f"device log: {s.numel()} values in [5e-324, 9e307]: max {rel:.2f} ulp of torch.log "
+          f"where |log s| >= 1 (tol 4), max {absolute:.2f} x 2^-52 elsewhere (tol 4); "
+          f"max |device - numpy model| {vs_model:.3e}", flush=True)
+    _check(rel <= 4.0 and absolute <= 4.0 and bool(torch.isfinite(got).all()),
+           "the device log misses its accuracy contract")
+    return {"ulp": rel, "abs": absolute, "vs_model": vs_model}
 
 
 def _grads(fn, model, pts, kernel, dist2=None, gate=None, cot=None):
@@ -1059,7 +1169,8 @@ def main_path_precise(dev, label: str) -> dict:
     frame = _sphere_frame(pts)
     n_diff = 65536
 
-    counters = (cuda_precise.evaluate_cuda_precise, cuda_eval.evaluate_cuda_diff)
+    counters = (cuda_precise.evaluate_cuda_precise, cuda_precise.evaluate_cuda_precise_frames,
+                cuda_eval.evaluate_cuda_diff)
     for fn in counters:
         fn.launches = 0
     per_apply = {}
@@ -1070,9 +1181,10 @@ def main_path_precise(dev, label: str) -> dict:
         deformers[kernel] = Deformer.fit(rest, deformed, cfg, params, device=dev)
         outs[kernel] = deformers[kernel].apply(pts, dist2=cap_d2, frame=frame, group_mask=mask)
         per_apply[kernel.name] = cuda_precise.evaluate_cuda_precise.launches - before
-    shot_out, shot_w = batched.deform_frames(rest, shot, pts, cap_d2, mask.float(),
-                                             cfgs[RBFKernel.THIN_PLATE], params, frame=frame,
-                                             device=dev)
+    shot_model, _ = batched.fit_frames(rest, shot, cfgs[RBFKernel.THIN_PLATE], params,
+                                       device=dev)
+    shot_out, shot_w = batched.apply_frames(shot_model, pts, cap_d2, mask.float(),
+                                            cfgs[RBFKernel.THIN_PLATE], params, frame=frame)
     tps = deformers[RBFKernel.THIN_PLATE]
     grad_args = (tps.model, pts[:n_diff], RBFKernel.THIN_PLATE, cap_d2[:n_diff],
                  mask[:n_diff].float())
@@ -1086,8 +1198,11 @@ def main_path_precise(dev, label: str) -> dict:
           f"[{label}]", flush=True)
     _check(all(c == 1 for c in per_apply.values()),
            f"apply('auto') must launch the precise kernel exactly once: {per_apply}")
-    _check(launches["evaluate_cuda_precise"] == 2 + n_frames,
-           "the shot did not take one precise launch per frame")
+    fb = cuda_precise.PRECISE_FRAMES_PER_LAUNCH
+    _check(launches["evaluate_cuda_precise"] == 2,
+           "only the two apply('auto') calls take single-pose precise launches")
+    _check(launches["evaluate_cuda_precise_frames"] == -(-n_frames // fb),
+           f"the {n_frames}-pose shot must take ceil({n_frames} / {fb}) precise frames launches")
     _check(launches["evaluate_cuda_diff"] == 1,
            "the gradient must launch evaluate_cuda_diff's kernel exactly once")
     _check(all(bool(torch.isfinite(g).all()) for g in grads), "gradients not finite")
@@ -1144,6 +1259,15 @@ def main_path_precise(dev, label: str) -> dict:
     # each shot frame against the single-pose precise kernel path
     _check(tuple(shot_out.shape) == (n_frames, v, 3) and bool(torch.isfinite(shot_out).all()),
            "shot output not finite of shape (F, V, 3)")
+    # ... first the single-pose launch of the same frame's weights, bit for bit
+    zeros = torch.zeros(v, device=dev)
+    equal = [bool(torch.equal(shot_out[f], cuda_precise.evaluate_cuda_precise(
+        cuda_eval.frame_model(shot_model, f), pts, zeros, shot_w, 1.0, 1.0,
+        RBFKernel.THIN_PLATE, PolyTerm.LINEAR, frame=frame)[0])) for f in range(n_frames)]
+    print(f"TPS shot at {v} x {n_ctrl} x {n_frames}: "
+          f"{launches['evaluate_cuda_precise_frames']} frames launch(es) of up to {fb} frames; "
+          f"every frame equal to its single-pose launch bit for bit: {equal}")
+    _check(all(equal), "a shot frame differs from its single-pose precise launch")
     worst, worst_twin = 0.0, 0.0
     cfg = cfgs[RBFKernel.THIN_PLATE]
     prm = params.clamped()
@@ -1163,7 +1287,7 @@ def main_path_precise(dev, label: str) -> dict:
     _check(worst <= SHOT_VS_SINGLE_TOL, "a shot frame disagrees with the single-pose path")
     _check(worst_twin <= PRECISE_POS_TOL, "a shot frame disagrees with the plain twin")
     return {"launches": launches, "deformers": deformers, "points": pts, "rest": rest,
-            "deformed": deformed, "params": params, "cfgs": cfgs}
+            "deformed": deformed, "params": params, "cfgs": cfgs, "shot_equal": all(equal)}
 
 
 def time_precise(main_c: dict, label: str) -> list:
@@ -1208,6 +1332,52 @@ def time_precise(main_c: dict, label: str) -> list:
               f"kernel's time; max |d| vs twin {err:.3e}")
         res[n_ctrl] = (t, err)
 
+    # the shot's frames launches against F single-pose launches, in the
+    # same interleaved rounds, on a fitted 8-pose TPS shot at 1M x 4096
+    from facedeform_tpu_torch.parallel import batched
+
+    rest = main_c["rest"]
+    poses = rest + 0.05 * rng.standard_normal((8,) + rest.shape).astype(np.float32)
+    shot8, _ = batched.fit_frames(rest, poses, cfg, params, device=dev)
+    eval_args = (pts, d2, gate, 1.0, 1.0, tps, PolyTerm.LINEAR)
+    shot_t = {}
+    for nf in (4, 8):
+        sub = cuda_eval.frame_model(shot8, slice(0, nf))
+        singles = [cuda_eval.frame_model(sub, f) for f in range(nf)]
+        fns = {f"frames x{nf}": lambda sub=sub: cuda_precise.evaluate_cuda_precise_frames(
+                   sub, *eval_args),
+               f"single x{nf}": lambda singles=singles: [
+                   cuda_precise.evaluate_cuda_precise(m, *eval_args) for m in singles]}
+        if nf == 4:
+            fns["frames plain x4"] = lambda sub=sub: (
+                cuda_precise.evaluate_precise_frames_reference(sub, *eval_args))
+        else:
+            # the same 8 frames as two FB = 4 launches: is FB = 8 worth its registers?
+            halves = tuple(cuda_eval.frame_model(sub, slice(f, f + 4)) for f in (0, 4))
+            fns["frames 2 x4"] = lambda halves=halves: [
+                cuda_precise.evaluate_cuda_precise_frames(h, *eval_args) for h in halves]
+        shot_t.update({k: stats(x) for k, x in time_cuda(fns, rounds=3, iters={
+            f"frames x{nf}": 3, f"single x{nf}": 2, "frames plain x4": 1,
+            "frames 2 x4": 3}).items()})
+        print(_fmt(f"precise frames launch, {nf} poses (TPS)", shot_t[f"frames x{nf}"],
+                   f" at {v} x 4096 x {nf}  [{label}]"))
+        print(_fmt(f"{nf} single-pose precise launches (TPS)", shot_t[f"single x{nf}"],
+                   f" at {v} x 4096  [{label}]"))
+        print(f"precise frames launch vs {nf} single-pose launches: "
+              f"{shot_t[f'frames x{nf}'][0] / shot_t[f'single x{nf}'][0]:.3f}x the time "
+              f"(best of each)  [{label}]", flush=True)
+    print(_fmt("8 poses as two 4-frame launches (TPS)", shot_t["frames 2 x4"],
+               f" at {v} x 4096 x 8  [{label}]"))
+    print(_fmt("precise frames plain twin, 4 poses (TPS)", shot_t["frames plain x4"],
+               f" at {v} x 4096 x 4  [{label}]"))
+    sub4 = cuda_eval.frame_model(shot8, slice(0, 4))
+    want4, _ = cuda_precise.evaluate_precise_frames_reference(sub4, *eval_args)
+    e_frames = float(torch.max(torch.abs(
+        cuda_precise.evaluate_cuda_precise_frames(sub4, *eval_args)[0] - want4)))
+    _check(e_frames <= PRECISE_POS_TOL,
+           f"precise frames launch at {v} x 4096 x 4: |dpos| {e_frames:.3e} vs the twin")
+    time_precise_bases(dev, label)
+
     r_dev = torch.as_tensor(main_c["rest"], device=dev)
     f_dev = torch.as_tensor(main_c["deformed"], device=dev)
     fits = {f"fit {k.name}": (lambda c=c: fit_mod.fit(r_dev, f_dev, c, params))
@@ -1244,7 +1414,21 @@ def time_precise(main_c: dict, label: str) -> list:
          "replaces": "facedeform_tpu/ops/pallas_precise.py:231",
          "launches": main_c["launches"]["evaluate_cuda_precise"], "max_abs_err": e4k,
          "ms": t4k["precise"][0], "plain_ms": t4k["precise plain"][0],
-         **_bound(36 * v + 40 * 4096, 20 * v * 4096, PEAK_F64), "library_ms": None},
+         **_bound(36 * v + 40 * 4096, (20 * v * 4096, PEAK_F64)), "library_ms": None},
+        # fp64, per pair: d2, s and phi once (14 as above) at the fp64
+        # rate, the contraction's 3 FMAs a frame (6F) at the fp64 tensor-core
+        # rate, since a (V x N) . (N x 3F) product of F >= 4 can run as
+        # DMMA; bytes: points, dist2, gate, falloff, (F, V, 3) out; ctrl,
+        # eps, F frames of w hi + lo, F tails
+        {"name": "eval_precise_frames", "route": "cuda",
+         "source": "facedeform_tpu_torch/csrc/precise.cu",
+         "replaces": "facedeform_tpu/ops/pallas_precise.py:231",
+         "launches": main_c["launches"]["evaluate_cuda_precise_frames"],
+         "max_abs_err": e_frames, "ms": shot_t["frames x4"][0],
+         "plain_ms": shot_t["frames plain x4"][0],
+         **_bound((24 + 12 * 4) * v + (16 + 24 * 4) * 4096 + 96 * 4,
+                  (14 * v * 4096, PEAK_F64), (6 * 4 * v * 4096, PEAK_F64_TC)),
+         "library_ms": None},
         # forward 17 per pair, backward ~22 (w: 3 FMAs; points: w.cot, phi',
         # scale, 3 FMAs); bytes: the forward's, the cotangent, both gradients
         {"name": "eval_diff", "route": "cuda",
@@ -1252,8 +1436,43 @@ def time_precise(main_c: dict, label: str) -> list:
          "replaces": "facedeform_tpu/ops/pallas_eval.py:920",
          "launches": main_c["launches"]["evaluate_cuda_diff"], "max_abs_err": err_diff,
          "ms": dt["diff fwd+bwd"][0], "plain_ms": dt["plain fwd+bwd"][0],
-         **_bound(60 * v_d + 40 * n_d, 39 * v_d * n_d, PEAK_F32), "library_ms": None},
+         **_bound(60 * v_d + 40 * n_d, (39 * v_d * n_d, PEAK_F32)), "library_ms": None},
     ]
+
+
+def time_precise_bases(dev, label: str) -> dict:
+    """Phase 7c: the single-pose precise launch at 1M x 4096 for TPS, MQ,
+    linear and cubic (Deformer.fit of 4096 Fibonacci controls per basis,
+    KERNEL mode, every vertex active), in interleaved rounds; the TPS -
+    linear gap is the log's cost.  Returns {basis: (best, median, spread)}."""
+    from facedeform_tpu_torch import DeformConfig, DeformParams, Deformer
+    from facedeform_tpu_torch.benchmark import stats, time_cuda
+    from facedeform_tpu_torch.config import PolyTerm, RBFModelType
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points, uv_sphere
+    from facedeform_tpu_torch.ops import cuda_precise
+    from facedeform_tpu_torch.ops.fit import GROWING_KERNELS
+
+    rng = np.random.default_rng(7)
+    n_ctrl = 4096
+    rest = fibonacci_points(n_ctrl)
+    deformed = rest + 0.05 * rng.standard_normal((n_ctrl, 3)).astype(np.float32)
+    pts = torch.as_tensor(uv_sphere(1000, 1000).points, device=dev)
+    v = pts.shape[0]
+    d2, gate = torch.zeros(v, device=dev), torch.ones(v, device=dev)
+    fns = {}
+    for kernel in GROWING_KERNELS:
+        cfg = DeformConfig(model=RBFModelType.KERNEL, kernel=kernel, term=PolyTerm.LINEAR,
+                           solver="direct")
+        model = Deformer.fit(rest, deformed, cfg, DeformParams(radius=1.0, lam=0.01),
+                             device=dev).model
+        fns[kernel.name] = (lambda m=model, k=kernel: cuda_precise.evaluate_cuda_precise(
+            m, pts, d2, gate, 1.0, 1.0, k, PolyTerm.LINEAR))
+    t = {k: stats(x) for k, x in time_cuda(fns, rounds=5, iters=5).items()}
+    for k, x in t.items():
+        print(_fmt(f"precise {k}", x, f" at {v} x {n_ctrl}, one pose  [{label}]"))
+    print(f"precise TPS - LINEAR (the log's cost): "
+          f"{t['THIN_PLATE'][0] - t['LINEAR'][0]:.4f} ms  [{label}]", flush=True)
+    return t
 
 
 def _bump_rig(n, centers=((0, 1, 0),)):
@@ -1405,7 +1624,7 @@ def _pu_bound(f, v, vp, k_, p_, n_items, pairs) -> dict:
     out."""
     n_bytes = (16 * v + 4 * vp + 4 * n_items + 4 * (vp // 256 + 1) + 16 * k_ * p_
                + 12 * f * k_ * p_ + 48 * f * k_ + 36 * k_ + 12 * f * v)
-    return _bound(n_bytes, (15 + 6 * f) * pairs, PEAK_F32)
+    return _bound(n_bytes, ((15 + 6 * f) * pairs, PEAK_F32))
 
 
 def main_path_pu(dev, label: str) -> dict:
@@ -1749,11 +1968,17 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s  [{label}]", flush=True)
     for line in _ptxas_summary(log):
         print("  ptxas:", line)
+    if "--precise-bases" in sys.argv[1:]:
+        # the precise kernel's per-basis timing alone
+        time_precise_bases(dev, label)
+        return 0
 
     check_kernels(dev)
     check_frames_kernel(dev)
     check_jacobian_kernel(dev)
     check_precise_kernel(dev)
+    check_precise_frames_kernel(dev)
+    check_device_log(dev)
     check_diff_kernel(dev)
     check_pu_kernel(dev)
     main = main_path(dev, label)

@@ -126,8 +126,10 @@ def build() -> str:
     lib.fd_eval_frames.restype = i32
     lib.fd_jacobian.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
     lib.fd_jacobian.restype = i32
-    lib.fd_eval_precise.argtypes = [ptr] * 12 + [i32] * 5 + [f32, f32, ptr]
+    lib.fd_eval_precise.argtypes = [ptr] * 13 + [i32] * 8 + [f32, f32, ptr]
     lib.fd_eval_precise.restype = i32
+    lib.fd_log_probe.argtypes = [ptr] * 3 + [i32, ptr]
+    lib.fd_log_probe.restype = i32
     lib.fd_pu_tiles.argtypes = [ptr] * 12 + [i32] * 8 + [ptr]
     lib.fd_pu_tiles.restype = i32
     _lib = lib
@@ -407,10 +409,14 @@ evaluate_cuda_culled.launches = 0
 FRAMES_PER_LAUNCH = 16
 
 
-def frame_model(model, f: int) -> RBFModel:
-    """Frame f of a frames-stacked model (ctrl and eps are shared)."""
+def frame_model(model, f) -> RBFModel:
+    """Frame f of a frames-stacked model, with that frame's lo words when
+    the model carries them (ctrl and eps are shared); a slice f keeps the
+    frame axis."""
+    has_lo = model.w_rbf_lo is not None
     return RBFModel(ctrl=model.ctrl, w_rbf=model.w_rbf[f], w_poly=model.w_poly[f],
-                    eps=model.eps)
+                    eps=model.eps, w_rbf_lo=model.w_rbf_lo[f] if has_lo else None,
+                    w_poly_lo=model.w_poly_lo[f] if has_lo else None)
 
 
 def evaluate_frames_reference(

@@ -8,9 +8,8 @@ An animated shot keeps its rest rig and mesh fixed, so:
     factorization per layer with the frames as right-hand-side columns;
   * apply_frames evaluates every frame against the same vertex buffer in
     one kernel pass per frame chunk (distances and phi computed once per
-    (vertex, control), ops.cuda_eval.evaluate_cuda_frames), or for growing
-    kernels one float64 precise launch per frame
-    (ops.cuda_precise.evaluate_cuda_precise);
+    (vertex, control): ops.cuda_eval.evaluate_cuda_frames, or for growing
+    kernels the float64 ops.cuda_precise.evaluate_cuda_precise_frames);
   * transport_frames carries point attributes through each frame's
     deformation gradient, with the Jacobians of a frame chunk from one
     kernel pass (ops.cuda_jacobian.jacobian_cuda_frames).
@@ -119,9 +118,10 @@ def apply_frames(
     kernel's falloff is then exactly that weight).  frame=(u, v, n) of
     (V, 3) tangent attributes projects every frame's displacement when
     cfg.tangent is set; it is dropped otherwise.  The frames kernel is
-    f32-only, so growing kernels take one float64 precise launch per frame
-    (ops.cuda_precise), with that frame's weights and lo words and the
-    same folded weight as its gate."""
+    f32-only, so growing kernels take the float64 precise kernel's frames
+    launches (ops.cuda_precise.evaluate_cuda_precise_frames: phi shared
+    across up to 8 frames, each frame's lo words when the model has them),
+    with the same folded weight as their gate."""
     _mesh_not_ported(mesh)
     dev = batched_model.device
     kernel = fit_mod.effective_kernel(cfg)
@@ -133,20 +133,9 @@ def apply_frames(
                           strict_parity=cfg.strict_parity)
     w = (w * _f32(gate, dev)).contiguous()
     zeros = torch.zeros_like(w)
-    if kernel in GROWING_KERNELS:
-        m = batched_model
-        has_lo = m.w_rbf_lo is not None
-        out = torch.empty((m.w_rbf.shape[0],) + tuple(points.shape), device=dev)
-        for f in range(out.shape[0]):
-            out[f] = cuda_precise.evaluate_cuda_precise(
-                RBFModel(ctrl=m.ctrl, w_rbf=m.w_rbf[f], w_poly=m.w_poly[f], eps=m.eps,
-                         w_rbf_lo=m.w_rbf_lo[f] if has_lo else None,
-                         w_poly_lo=m.w_poly_lo[f] if has_lo else None),
-                points, zeros, w, 1.0, 1.0, kernel, cfg.term, frame=frame)[0]
-        return out, w
-    out, _ = cuda_eval.evaluate_cuda_frames(
-        batched_model, points, zeros, w, 1.0, 1.0, kernel, cfg.term, frame=frame,
-    )
+    evaluate = (cuda_precise.evaluate_cuda_precise_frames if kernel in GROWING_KERNELS
+                else cuda_eval.evaluate_cuda_frames)
+    out, _ = evaluate(batched_model, points, zeros, w, 1.0, 1.0, kernel, cfg.term, frame=frame)
     return out, w
 
 

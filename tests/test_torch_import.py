@@ -36,3 +36,26 @@ def test_import_loads_no_jax_and_builds_nothing(tmp_path):
     )
     after = sorted(build.glob("*")) if build.exists() else []
     assert after == before
+
+
+def test_every_port_module_and_chip_smoke_load_no_jax(tmp_path):
+    """Every module under facedeform_tpu_torch/ (found by walking the
+    package, so a new module is covered) and chip_smoke.py import without
+    JAX or the JAX package; the precise kernel's counters start at 0."""
+    code = (
+        "import importlib.util, pkgutil, sys, facedeform_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names: importlib.import_module(name)\n"
+        "spec = importlib.util.spec_from_file_location(\n"
+        f"    'chip_smoke', {str(REPO / 'chip_smoke.py')!r})\n"
+        "smoke = importlib.util.module_from_spec(spec); spec.loader.exec_module(smoke)\n"
+        "jax = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'facedeform_tpu')]\n"
+        "assert not jax, jax\n"
+        "assert len(names) > 20, names\n"
+        "import facedeform_tpu_torch.ops.cuda_precise as cp\n"
+        "assert cp.evaluate_cuda_precise_frames.launches == 0 and cp.device_log.launches == 0\n"
+    )
+    subprocess.run(
+        [sys.executable, "-c", code], check=True, cwd=tmp_path,
+        env={"PYTHONPATH": str(REPO), "PATH": "/usr/bin:/bin"}, timeout=120,
+    )
