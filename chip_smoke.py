@@ -15,8 +15,11 @@
      plus a group gate (culled for gaussian and Wendland);
    - frames eval: F in {1, 8, 11, 17} (17 crosses the 16-frame launch
      chunk), a 33%-active folded weight;
-   - Jacobian: single entry and F in {8, 9} (9 crosses the 8-frame launch
-     chunk), plus a float64 central-difference check of J on 64 vertices;
+   - Jacobian: single entry and F in {2, 3, 4, 8, 9} (every frames block
+     NT in {1, 2, 3}; 9 crosses the 8-frame launch chunk) at N in
+     {1000, 2500, 1003}, every frame of the F = 8 launch against its
+     single-pose launch, plus a float64 central-difference check of J on
+     64 vertices;
    - float64 precise eval: L in {1, 3}, strict_parity both ways, 33%
      capture-active plus a group gate, lo words present and absent, plus
      fitted TPS/MQ/linear/cubic models on which the f32 dense kernel must
@@ -30,8 +33,10 @@
      w.r.t. w_rbf and points at 65536 x 1000, gaussian and TPS;
    - the partition-of-unity tile kernel on fitted 3000-control rigs: TPS,
      gaussian, MQ and Wendland x LINEAR, CONSTANT and ZERO tails, F in {1,
-     2, 8, 16, 17}, far points (nearest-patch fallback) and coverage-shell
-     points, a single-patch rig, and one case against the plain f32
+     2, 3, 4, 8, 16, 17} (every NT in {0, 1, 2, 3, 6}), far points
+     (nearest-patch fallback) and coverage-shell points, every frame of the
+     F = 16 launch against its single-pose launch, a rig with ragged patch
+     widths, a single-patch rig, and one case against the plain f32
      evaluate_pu;
 4. runs slice A's main path at the headline size: Deformer.fit of 1000
    Fibonacci controls (default config), apply("auto") and
@@ -45,7 +50,8 @@
    frame, transport_frames of the sphere's normals with stretches, and
    Deformer.jacobian at 1M, with launch counters read around it; every
    frame is held against a single-pose Deformer on a 4096-vertex subset and
-   two frames against a float64 oracle;
+   two frames against a float64 oracle, the Jacobian kernel against its
+   plain twin (on the subset and over all 1M) and a float64 Jacobian;
 6. runs slice C's main path, growing kernels at full width: TPS and MQ
    Deformer.fit of 4096 Fibonacci controls (float64 assembly, GMRES-IR)
    and apply("auto") on the 1M-vertex sphere with a capture d2, a tangent
@@ -56,6 +62,9 @@
    frame and the gradient against their plain twins, displacements
    against a float64 solve of the same systems, each shot frame against
    its single-pose launch (bit for bit) and the single-pose precise path;
+   the shot refitted through the forced shared-factorization route, equal
+   to the per-pose route's model bit for bit and within the budget of the
+   float64 oracle;
 6b. runs slice F's main path, partition-of-unity rigs (the JAX package's
    benchmark configs 9 and 10): PUDeformer.fit of 30k TPS controls and
    displacement on the 1M-vertex sphere (one PU launch) and at the
@@ -71,19 +80,20 @@
    launches at 1M x 4096 in the same rounds, its single-pose launch per
    basis (TPS/MQ/linear/cubic), the float64-route fits at 4096 and the
    custom-VJP eval's forward + backward, the PU kernel against its twin at
-   1M x 30k and 1M x 20k x 8 frames, the PU fits and host plan builds, and
-   profiles of the 30k PU fit and the PU kernel
-   (facedeform_tpu_torch.benchmark);
+   1M x 30k and 1M x 20k x 8 frames with the pairs it computes against
+   the pairs it needs, the PU fits and host plan builds, and profiles of
+   the 30k PU fit and the PU kernel (facedeform_tpu_torch.benchmark);
 8. prints a kernels JSON line (per kernel its time, its plain version's,
    its bound from this run's inputs and which of bytes or operations binds
    it, library_ms null: no single PyTorch call computes an RBF or PU
    field), the card line, and as its last line
    {"ok": true, "device": {...}}.
 
-Any failed check raises, so the script exits non-zero.  The option
---precise-bases runs the precise kernel's per-basis timing alone (no
-final record), so that a parent commit's package can be timed by the
-same code.
+Any failed check raises, so the script exits non-zero.  Parts alone (no
+final record): --precise-bases times the precise kernel per basis and
+--pu-jac the PU and Jacobian kernels at their main-path shapes, both
+through entry points a parent commit has too, so that a parent checkout
+(the script copied into it) is timed by the same code.
 """
 
 from __future__ import annotations
@@ -144,6 +154,11 @@ PU_BACKWARD_TOL = 1e-9    # PU fit health (tests/test_pu.py)
 # the float64 field, relative to max|J|: 9e-6 measured on a 3000-control
 # TPS rig (CPU probe)
 PU_JAC_FD_TOL = 1e-4
+# frames per PU check launch: every NT in {0, 1, 2, 3, 6}, 17 = 16 + 1
+PU_CHECK_FRAMES = (1, 2, 3, 4, 8, 16, 17)
+# the bump centers of slice F's 8-pose shot (the JAX package's config 10)
+PU_SHOT_CENTERS = ((0, 1, 0), (1, 0, 0), (0, 0, 1), (0, -1, 0), (-1, 0, 0), (0, 0, -1),
+                   (0.7, 0.7, 0), (0, 0.7, 0.7))
 # host-clock rounds of the PU fits and host builds: their walls vary with
 # the shared host, so the medians of interleaved rounds are what to read
 PU_WALL_ROUNDS = 7
@@ -151,12 +166,14 @@ PU_WALL_ROUNDS = 7
 # Peak rates of one H100 SXM (NVIDIA's data sheet) for the bound_ms of the
 # kernels line: f32 and fp64 outside the tensor cores, fp64 on the tensor
 # cores (DMMA, IEEE fp64: the rate a contraction of many columns can
-# reach), device memory.  Operations are counted per pair from each
+# reach), TF32 on the tensor cores (dense; the PU and Jacobian kernels'
+# 3xTF32 passes), device memory.  Operations are counted per pair from each
 # kernel's source, a transcendental (exp, log, sqrt) as one operation and
 # an FMA as two, so the operation bound is a lower bound.
 PEAK_F32 = 67e12
 PEAK_F64 = 34e12
 PEAK_F64_TC = 67e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 
@@ -166,11 +183,12 @@ def _check(ok: bool, msg: str) -> None:
 
 
 def _bound(n_bytes: float, *work: tuple[float, float]) -> dict:
-    """bound_ms (the larger of bytes / memory rate and the sum of
-    operations / peak over the (operations, peak) parts of `work`) and
-    which of the two binds."""
+    """bound_ms (the larger of bytes / memory rate and the operations'
+    time) and which of the two binds.  Each (operations, peak) part of
+    `work` runs on its own pipe (CUDA cores, tensor cores), and the pipes
+    overlap, so the operations' time is the largest part's, not the sum."""
     t_bytes = n_bytes / PEAK_BYTES * 1e3
-    t_ops = sum(n_ops / peak for n_ops, peak in work) * 1e3
+    t_ops = max(n_ops / peak for n_ops, peak in work) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -360,9 +378,12 @@ def _field64(model, pts, kernel):
 
 
 def check_jacobian_kernel(dev) -> float:
-    """Phase 3c: the Jacobian kernel (single entry, F = 8 and F = 9) against
-    its plain twin, and against a float64 central difference of the field
-    on 64 vertices; returns the worst decaying relative |dJ|."""
+    """Phase 3c: the Jacobian kernel (single entry and F in {2, 3, 4, 8, 9}:
+    every NT in {1, 2, 3}, 9 = 8 + 1) against its plain twin at N in
+    {1000, 2500, 1003 (ragged)}, every frame of the F = 8 launch against its
+    single-pose launch, and the single entry against a float64 central
+    difference of the field on 64 vertices; returns the worst decaying
+    relative |dJ| (the 3xTF32 contraction's error against the twin)."""
     from facedeform_tpu_torch.config import PolyTerm, RBFKernel
     from facedeform_tpu_torch.ops import cuda_eval, cuda_jacobian
     from facedeform_tpu_torch.ops.fit import GROWING_KERNELS, RBFModel
@@ -371,8 +392,8 @@ def check_jacobian_kernel(dev) -> float:
     pts, _ = _ragged_points(dev, rng)
     idx = torch.linspace(0, pts.shape[0] - 1, 64, device=dev).long()
     h = 1e-5
-    worst, n_cases = 0.0, 0
-    for n in (1000, 2500):
+    worst, worst_single, n_cases = 0.0, 0.0, 0
+    for n in (1000, 2500, 1003):
         for n_layers in (1, 4):
             for kernel in RBFKernel:
                 model = _frames_model(n, n_layers, 9, kernel, rng, dev)
@@ -380,17 +401,28 @@ def check_jacobian_kernel(dev) -> float:
                 want = cuda_jacobian.jacobian_frames_reference(
                     model, pts, kernel, PolyTerm.LINEAR)
                 got9 = cuda_jacobian.jacobian_cuda_frames(model, pts, kernel, PolyTerm.LINEAR)
-                got8 = cuda_jacobian.jacobian_cuda_frames(
-                    RBFModel(ctrl=model.ctrl, w_rbf=model.w_rbf[:8],
-                             w_poly=model.w_poly[:8], eps=model.eps),
-                    pts, kernel, PolyTerm.LINEAR)
+                gots = {nf: cuda_jacobian.jacobian_cuda_frames(
+                    RBFModel(ctrl=model.ctrl, w_rbf=model.w_rbf[:nf],
+                             w_poly=model.w_poly[:nf], eps=model.eps),
+                    pts, kernel, PolyTerm.LINEAR) for nf in (2, 3, 4, 8)}
+                got8 = gots[8]
                 one = cuda_eval.frame_model(model, 0)
                 got1 = cuda_jacobian.jacobian_cuda(one, pts, kernel, PolyTerm.LINEAR)
+                singles = [got1] + [cuda_jacobian.jacobian_cuda(
+                    cuda_eval.frame_model(model, f), pts, kernel, PolyTerm.LINEAR)
+                    for f in range(1, 8)]
                 torch.cuda.synchronize()
                 scale = max(1.0, float(torch.max(torch.abs(want))))
-                e8 = max(float(torch.max(torch.abs(got8 - want[:8]))),
-                         float(torch.max(torch.abs(got9 - want)))) / scale
+                e8 = max([float(torch.max(torch.abs(got9 - want)))]
+                         + [float(torch.max(torch.abs(g - want[:nf]))) for nf, g in gots.items()]
+                         ) / scale
                 e1 = float(torch.max(torch.abs(got1 - want[0]))) / scale
+                d_single = max(float(torch.max(torch.abs(got8[f] - singles[f])))
+                               for f in range(8))
+                _check(d_single <= FRAME_VS_SINGLE_TOL * scale,
+                       f"jacobian {kernel.name} N={n} L={n_layers}: a frame of the F=8 launch "
+                       f"differs from its single-pose launch by {d_single:.3e}")
+                worst_single = max(worst_single, d_single / scale)
                 # float64 central difference of the field, frame 0
                 fd = torch.zeros((64, 3, 3), dtype=torch.float64, device=dev)
                 for b in range(3):
@@ -407,13 +439,15 @@ def check_jacobian_kernel(dev) -> float:
                        f"{efd:.3e} (tol {JAC_FD_TOL:g})")
                 if tol == JAC_TOL_DECAYING:
                     worst = max(worst, e8, e1)
-                n_cases += 3
-                print(f"  jacobian N={n} L={n_layers} {kernel.name:20s} rel|dJ| F=8/9 "
-                      f"{e8:.3e} single {e1:.3e} (tol {tol:g}), vs f64 FD {efd:.3e}",
-                      flush=True)
+                n_cases += 7
+                print(f"  jacobian N={n} L={n_layers} {kernel.name:20s} rel|dJ| F=2/3/4/8/9 "
+                      f"{e8:.3e} single {e1:.3e} (tol {tol:g}), vs f64 FD {efd:.3e}; F=8 "
+                      f"frames vs single-pose {d_single:.3e}", flush=True)
     print(f"jacobian kernel checks: {n_cases} cases within tolerance (relative "
           f"{JAC_TOL_DECAYING:g} decaying / {JAC_TOL_GROWING:g} growing, float64 FD "
-          f"{JAC_FD_TOL:g}); worst decaying {worst:.3e}", flush=True)
+          f"{JAC_FD_TOL:g}); worst decaying 3xTF32 error vs the twin {worst:.3e}; F=8 frames "
+          f"vs single-pose launches max rel |dJ| {worst_single:.3e} (bit for bit: "
+          f"{worst_single == 0.0})", flush=True)
     return worst
 
 
@@ -556,7 +590,7 @@ def main_path_frames(dev, label: str) -> dict:
     from facedeform_tpu_torch.geometry.primitives import fibonacci_points, uv_sphere
     from facedeform_tpu_torch.ops import cuda_eval, cuda_jacobian, temporal
     from facedeform_tpu_torch.ops import jacobian as jac_mod
-    from facedeform_tpu_torch.ops.fit import effective_kernel
+    from facedeform_tpu_torch.ops.fit import GROWING_KERNELS, effective_kernel
     from facedeform_tpu_torch.parallel import batched
     from facedeform_tpu_torch.utils import errors
 
@@ -653,6 +687,26 @@ def main_path_frames(dev, label: str) -> dict:
           f"{float(diff.max()):.3e}; stretches in [{float(stretch.min()):.4f}, "
           f"{float(stretch.max()):.4f}]")
     _check(t_err <= TRANSPORT_TOL, "transported normals disagree with the plain path")
+
+    # the Jacobian kernel (F = 8 and single) on the subset against its plain
+    # twin at the kernel checks' tolerance and against a float64 Jacobian
+    # of the same model at the f32-vs-float64 one
+    kernel = effective_kernel(cfg)
+    j64 = _jacobian64(model, pts[idx], kernel, cfg.term)
+    twin = cuda_jacobian.jacobian_frames_reference(model, pts[idx], kernel, cfg.term).double()
+    got8 = cuda_jacobian.jacobian_cuda_frames(model, pts[idx], kernel, cfg.term).double()
+    got1 = cuda_jacobian.jacobian_cuda(cuda_eval.frame_model(model, 0), pts[idx], kernel,
+                                       cfg.term).double()
+    scale = max(1.0, float(j64.abs().max()))
+    rel = lambda a, b: float((a - b).abs().max()) / scale  # noqa: E731
+    tol = JAC_TOL_GROWING if kernel in GROWING_KERNELS else JAC_TOL_DECAYING
+    e8, e1 = rel(got8, j64), rel(got1, j64[0])
+    t8, t1 = rel(got8, twin), rel(got1, twin[0])
+    print(f"jacobian kernel, 4096-vertex subset, of max(1, max|J|) = {scale:.3e}: vs the plain "
+          f"twin F=8 {t8:.3e}, single {t1:.3e} (tol {tol:g}); vs float64 F=8 {e8:.3e}, single "
+          f"{e1:.3e} (tol {JAC_FD_TOL:g}); the twin vs float64 {rel(twin, j64):.3e}")
+    _check(max(t8, t1) <= tol, "the Jacobian kernel disagrees with its plain twin")
+    _check(max(e8, e1) <= JAC_FD_TOL, "the Jacobian kernel strays from the float64 Jacobian")
     return {"launches": launches, "model": model, "rest": rest, "frames": frames,
             "points": pts, "cfg": cfg, "params": params}
 
@@ -717,7 +771,7 @@ def time_frames(main_b: dict, label: str) -> list:
     from facedeform_tpu_torch.geometry.primitives import fibonacci_points
     from facedeform_tpu_torch.ops import cuda_eval, cuda_jacobian
     from facedeform_tpu_torch.ops import fit as fit_mod
-    from facedeform_tpu_torch.ops.fit import RBFModel, effective_kernel
+    from facedeform_tpu_torch.ops.fit import GROWING_KERNELS, RBFModel, effective_kernel
     from facedeform_tpu_torch.ops.jacobian import displacement_jacobian
     from facedeform_tpu_torch.parallel import batched
 
@@ -774,8 +828,20 @@ def time_frames(main_b: dict, label: str) -> list:
     err_jac1 = float(torch.max(torch.abs(jfns["jacobian"]() - want_j[0])))
     for k, x in jt.items():
         print(_fmt(k, x, f" at {v} x {model.ctrl.shape[0]}  [{label}]"))
+    scale = max(1.0, float(want_j.abs().max()))
+    tol = JAC_TOL_GROWING if kernel in GROWING_KERNELS else JAC_TOL_DECAYING
     print(f"jacobian max |dJ| vs plain: F=8 {err_jac:.3e}, single {err_jac1:.3e} "
-          f"(max |J| {float(want_j.abs().max()):.3e})")
+          f"(max |J| {float(want_j.abs().max()):.3e}; of max(1, max|J|) "
+          f"{max(err_jac, err_jac1) / scale:.3e}, tol {tol:g})")
+    _check(max(err_jac, err_jac1) <= tol * scale,
+           "the Jacobian kernel disagrees with its plain twin at 1M")
+    n = model.ctrl.shape[0]
+    for name, nf, ms in (("F=8", n_frames, jt["jacobian F=8"][0]),
+                         ("single", 1, jt["jacobian"][0])):
+        b, old = _jac_bound(nf, v, n), _jac_bound(nf, v, n, tensor_cores=False)
+        print(f"jacobian {name} at {v} x {n}: bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+              f"({b['bound_ms'] / ms * 100:.1f}% of the kernel's time; CUDA-core formula "
+              f"{old['bound_ms']:.4f} ms, {old['bound_ms'] / ms * 100:.1f}%)  [{label}]")
 
     # both fit_frames routes
     for n_ctrl, nf in ((1000, 8), (4096, 32)):
@@ -818,16 +884,18 @@ def time_frames(main_b: dict, label: str) -> list:
          "ms": t["frames"][0], "plain_ms": t["frames plain"][0],
          **_bound(24 * v + 12 * f * v + 16 * n + 12 * f * n + 48 * f,
                   ((11 + 6 * f) * v * n, PEAK_F32)), "library_ms": None},
-        # per pair: d2 8, s 1, phi' 2, g 2, per frame 3 x (mul, add, 3 FMAs)
         {"name": "jacobian", "route": "cuda",
          "source": "facedeform_tpu_torch/csrc/jacobian.cu",
          "replaces": "facedeform_tpu/ops/pallas_jacobian.py:160",
-         "launches": main_b["launches"]["jacobian_cuda"]
-         + main_b["launches"]["jacobian_cuda_frames"],
-         "max_abs_err": max(err_jac, err_jac1),
+         "launches": main_b["launches"]["jacobian_cuda_frames"], "max_abs_err": err_jac,
          "ms": jt["jacobian F=8"][0], "plain_ms": jt["jacobian plain F=8"][0],
-         **_bound(12 * v + 36 * f * v + 16 * n + 12 * f * n,
-                  ((13 + 24 * f) * v * n, PEAK_F32)), "library_ms": None},
+         **_jac_bound(f, v, n), "library_ms": None},
+        {"name": "jacobian_single", "route": "cuda",
+         "source": "facedeform_tpu_torch/csrc/jacobian.cu",
+         "replaces": "facedeform_tpu/ops/pallas_jacobian.py:160",
+         "launches": main_b["launches"]["jacobian_cuda"], "max_abs_err": err_jac1,
+         "ms": jt["jacobian"][0], "plain_ms": jt["jacobian plain"][0],
+         **_jac_bound(1, v, n), "library_ms": None},
     ]
 
 
@@ -1286,6 +1354,32 @@ def main_path_precise(dev, label: str) -> dict:
           f"single-pose model's plain twin {worst_twin:.3e} (tol {PRECISE_POS_TOL:g})")
     _check(worst <= SHOT_VS_SINGLE_TOL, "a shot frame disagrees with the single-pose path")
     _check(worst_twin <= PRECISE_POS_TOL, "a shot frame disagrees with the plain twin")
+
+    # the shared-factorization route forced (budget 0): the per-pose route's
+    # model, lo words included, bit for bit; every frame against the oracle
+    budget = batched.vmap_fit_hbm_budget
+    batched.vmap_fit_hbm_budget = 0.0
+    try:
+        shared, _ = batched.fit_frames(rest, shot, cfg, params, device=dev)
+    finally:
+        batched.vmap_fit_hbm_budget = budget
+    same = {k: getattr(shared, k) is not None and bool(torch.equal(getattr(shared, k),
+                                                                   getattr(shot_model, k)))
+            for k in ("ctrl", "w_rbf", "w_poly", "eps", "w_rbf_lo", "w_poly_lo")}
+    sh_out, _ = batched.apply_frames(shared, pts[idx], cap_d2[idx], mask[idx].float(), cfg,
+                                     params, frame=sub_frame)
+    err_sh = 0.0
+    for f in range(n_frames):
+        disp = _oracle_kernel_disp(torch.as_tensor(rest, device=dev),
+                                   torch.as_tensor(shot[f], device=dev), pts[idx],
+                                   RBFKernel.THIN_PLATE, 1.0, 0.01)
+        want = _project64(sub_frame, disp) * w64[:, None]
+        err_sh = max(err_sh, float(torch.max(torch.abs((sh_out[f] - pts[idx]).double() - want))))
+    print(f"TPS shot through the forced shared route: model equal to the per-pose route's bit "
+          f"for bit {same}; oracle, 4096-vertex subset, every frame: max displacement error "
+          f"{err_sh:.3e} (budget {ORACLE_BUDGET:g})")
+    _check(all(same.values()) and err_sh <= ORACLE_BUDGET,
+           "the shared route's growing-kernel shot differs from the per-pose route or the oracle")
     return {"launches": launches, "deformers": deformers, "points": pts, "rest": rest,
             "deformed": deformed, "params": params, "cfgs": cfgs, "shot_equal": all(equal)}
 
@@ -1393,8 +1487,12 @@ def time_precise(main_c: dict, label: str) -> list:
     gmodel = RBFModel(ctrl=d1k.model.ctrl, w_rbf=d1k.model.w_rbf,
                       w_poly=d1k.model.w_poly, eps=d1k.model.eps * 0.3)
     gauss = RBFKernel.GAUSSIAN
+    zeros_d, ones_d = torch.zeros(sub.shape[0], device=dev), torch.ones(sub.shape[0], device=dev)
     dfns = {"diff fwd+bwd": lambda: _grads(cuda_eval.evaluate_cuda_diff, gmodel, sub, gauss),
-            "plain fwd+bwd": lambda: _grads(_plain_diff, gmodel, sub, gauss)}
+            "plain fwd+bwd": lambda: _grads(_plain_diff, gmodel, sub, gauss),
+            # the forward alone: kernel #1 (no input needs a gradient)
+            "diff forward": lambda: cuda_eval.evaluate_cuda_diff(
+                gmodel, sub, zeros_d, ones_d, 1.0, 1.0, None, gauss, PolyTerm.LINEAR)}
     dt = {k: stats(x) for k, x in time_cuda(dfns, rounds=3, iters=3).items()}
     got, want = dfns["diff fwd+bwd"]()[0], dfns["plain fwd+bwd"]()[0]
     err_diff = max(float(torch.max(torch.abs(g - h))) for g, h in zip(got, want))
@@ -1406,6 +1504,12 @@ def time_precise(main_c: dict, label: str) -> list:
         print(_fmt(k, x, f" (gaussian) at 65536 x 1000  [{label}]"))
     t4k, e4k = res[4096]
     n_d, v_d = 1000, sub.shape[0]
+    # the forward is #1's kernel: its operations and bytes (time_kernels)
+    fwd = _bound(36 * v_d + 28 * n_d + 48, (17 * v_d * n_d, PEAK_F32))
+    print(f"diff at 65536 x 1000: the kernel forward {dt['diff forward'][0]:.4f} ms (bound "
+          f"{fwd['bound_ms']:.4f} ms by {fwd['bound_by']}), the plain backward "
+          f"{dt['diff fwd+bwd'][0] - dt['diff forward'][0]:.4f} ms (fwd+bwd minus forward, "
+          f"best of each)  [{label}]")
     return [
         # fp64, per pair: d2 8, s 1, TPS phi 5, 3 FMAs 6; bytes: points,
         # dist2, gate, out, falloff; ctrl, w hi + lo, eps
@@ -1497,16 +1601,20 @@ def _unit_dirs(n, rng):
 def check_pu_kernel(dev) -> float:
     """Phase 3f: the PU tile kernel against its plain twin on fitted models:
     TPS, gaussian, MQ and Wendland bases x LINEAR, CONSTANT and ZERO tails,
-    F in {1, 2, 8, 16, 17} (17 takes two launches), at a ragged V = 70002 +
-    200 far points (radius 1.6, forced nearest-patch fallback) + one point
-    in each patch's coverage-margin shell (0.99995 R); plus a single-patch
-    rig, and one case against the plain f32 evaluate_pu.  Returns the worst
-    relative |d|."""
+    F in {1, 2, 3, 4, 8, 16, 17} (every NT in {0, 1, 2, 3, 6}; 17 takes two
+    launches), at a ragged V = 70002 + 200 far points (radius 1.6, forced
+    nearest-patch fallback) + one point in each patch's coverage-margin
+    shell (0.99995 R), every frame of the F = 16 launch against its
+    single-pose launch; plus a rig with ragged patch widths (P not a
+    multiple of 8), a single-patch rig, and one case against the plain f32
+    evaluate_pu.  Returns the worst relative |d| (the 3xTF32 contraction's
+    error against the twin)."""
     from facedeform_tpu_torch.config import PolyTerm, RBFKernel
     from facedeform_tpu_torch.geometry.primitives import uv_sphere
     from facedeform_tpu_torch.ops import cuda_pu, pu
 
     rng = np.random.default_rng(8)
+    worst_single, all_same2 = 0.0, True
     sphere = uv_sphere(250, 280).points                       # V = 70002, ragged
     rest, frames = _bump_rig(3000, _unit_dirs(17, rng))
     patches = pu.build_patches(rest)
@@ -1528,8 +1636,8 @@ def check_pu_kernel(dev) -> float:
         args = (pts, tplan, kernel)
         want = cuda_pu.evaluate_pu_tiles_reference(models, *args)
         scale = float(want.abs().max())
-        errs = []
-        for n_frames in (1, 2, 8, 16, 17):
+        errs, got16 = [], None
+        for n_frames in PU_CHECK_FRAMES:  # nf = 1: the one-pose (CUDA-core) path
             got = cuda_pu.evaluate_pu_tiles_frames(models[:n_frames], *args)
             torch.cuda.synchronize()
             e = float((got - want[:n_frames]).abs().max()) / scale
@@ -1538,9 +1646,39 @@ def check_pu_kernel(dev) -> float:
                    f"(tol {PU_TOL:g})")
             errs.append(e)
             n_cases += 1
+            if n_frames == 16:
+                got16 = got
+        # every frame of the F = 16 launch against its single-pose launch
+        # (CUDA cores), and bit for bit against the F = 2 launch of it and
+        # the next frame (the same tensor-core passes)
+        d_single = max(float((got16[f] - cuda_pu.evaluate_pu_tiles(models[f], *args)).abs().max())
+                       for f in range(16))
+        same2 = all(bool(torch.equal(got16[f], cuda_pu.evaluate_pu_tiles_frames(
+            models[f:f + 2], *args)[0])) for f in range(15))
+        _check(d_single <= FRAME_VS_SINGLE_TOL and same2,
+               f"pu {kernel.name} {term.name}: a frame of the F=16 launch differs from its "
+               f"single-pose launch by {d_single:.3e}; equal to its F=2 launch {same2}")
+        worst_single = max(worst_single, d_single)
+        all_same2 = all_same2 and same2
         worst = max(worst, *errs)
         print(f"  pu {kernel.name:12s} {term.name:8s} K={len(patches.radii)} P={patches.idx.shape[1]} "
-              f"|d|/max|disp| F=1/2/8/16/17 " + " ".join(f"{e:.2e}" for e in errs), flush=True)
+              f"|d|/max|disp| F={'/'.join(map(str, PU_CHECK_FRAMES))} "
+              + " ".join(f"{e:.2e}" for e in errs)
+              + f"; F=16 frames vs single-pose max |d| {d_single:.3e}, vs F=2 launches "
+              f"bit for bit {same2}", flush=True)
+    # ragged patch widths: P and the live counts not multiples of 8
+    pr = pu.build_patches(rest, width_bucket=1)
+    planr = cuda_pu.plan_eval_tiles(pr, pts_np)
+    mr, _ = pu.fit_pu_frames(rest, frames[:4], RBFKernel.THIN_PLATE, lam=1e-5, patches=pr,
+                             device=dev)
+    argsr = (pts, planr, RBFKernel.THIN_PLATE)
+    wantr = cuda_pu.evaluate_pu_tiles_reference(mr, *argsr)
+    er = max(float((cuda_pu.evaluate_pu_tiles_frames(mr[:nf], *argsr) - wantr[:nf]).abs().max())
+             for nf in (1, 3)) / float(wantr.abs().max())
+    _check(pr.idx.shape[1] % 8 != 0 and er <= PU_TOL,
+           f"pu ragged P={pr.idx.shape[1]}: {er:.3e}")
+    worst = max(worst, er)
+    n_cases += 2
     # a single-patch rig (N <= patch_size: K = 1, every far point forced)
     r1, f1 = _bump_rig(150, ((0, 1, 0), (1, 0, 0), (0, 0, 1)))
     p1 = pu.build_patches(r1)
@@ -1563,9 +1701,12 @@ def check_pu_kernel(dev) -> float:
     got = cuda_pu.evaluate_pu_tiles(models[0], pts, tplan, RBFKernel.THIN_PLATE)
     e_plain = float((got - plain).abs().max())
     _check(e_plain <= PU_PLAIN_TOL, f"pu kernel vs plain evaluate_pu: {e_plain:.3e}")
-    print(f"pu kernel checks: {n_cases} cases within {PU_TOL:g} of max|disp| (worst "
-          f"{worst:.3e}; {n_forced} forced-fallback points, single-patch rig {e1:.3e}); vs "
-          f"plain f32 evaluate_pu max |d| {e_plain:.3e} (tol {PU_PLAIN_TOL:g})", flush=True)
+    print(f"pu kernel checks: {n_cases} cases within {PU_TOL:g} of max|disp| (worst 3xTF32 "
+          f"error vs the twin {worst:.3e}; {n_forced} forced-fallback points, ragged P="
+          f"{pr.idx.shape[1]} {er:.3e}, single-patch rig {e1:.3e}); vs plain f32 evaluate_pu "
+          f"max |d| {e_plain:.3e} (tol {PU_PLAIN_TOL:g}); F=16 frames vs single-pose launches "
+          f"max |d| {worst_single:.3e} (tol {FRAME_VS_SINGLE_TOL:g}), vs F=2 launches bit for "
+          f"bit {all_same2}", flush=True)
     return worst
 
 
@@ -1598,33 +1739,61 @@ def _pu_field64(model, x, chunk=32):
     return torch.cat(outs)
 
 
-def _pu_pairs(model, pts, tplan, dev) -> int:
-    """Live (point, control) pairs the tile kernel needs: over the plan's
-    items, the points whose partition weight is non-zero times the patch's
-    live controls."""
+def _pu_pairs(model, pts, tplan, dev) -> tuple[int, int, int]:
+    """(needed, per block, per warp): the live (point, control) pairs the
+    tile kernel needs over the plan's items (the points whose partition
+    weight is non-zero times the patch's live controls), and the pairs it
+    computes when an item is skipped only where no point of its 256-point
+    block needs it (a block-level skip: 256 x n_live) or where no point of
+    a 32-point warp does (the kernel's warp-level skip: 32 x n_live rounded
+    up to k-steps of 8 per warp that needs it)."""
     ip, iv, forced, perm, _, _ = tplan.device_arrays(dev)
-    v = tplan.num_points
+    v, tv = tplan.num_points, tplan.tile_v
     pz = torch.zeros((forced.shape[0], 3), device=dev)
     pz[:v] = pts[perm.long()]
     live = model.valid.sum(1)
-    n = 0
+    p_ = model.valid.shape[1]
+    n_live = ((model.valid > 0).long() * torch.arange(1, p_ + 1, device=dev)).amax(1)
+    needed = block = warp = 0
     for s in range(0, ip.shape[0], 4096):
         k, vt = ip[s:s + 4096].long(), iv[s:s + 4096].long()
-        lanes = vt[:, None] * tplan.tile_v + torch.arange(tplan.tile_v, device=dev)[None]
+        lanes = vt[:, None] * tv + torch.arange(tv, device=dev)[None]
         d2 = ((pz[lanes] - model.centers[k][:, None]) ** 2).sum(-1)
         hit = ((d2 < model.radii[k][:, None] ** 2) | (forced[lanes] == k[:, None])) & (lanes < v)
-        n += int((hit.sum(1) * live[k]).sum())
-    return n
+        needed += int((hit.sum(1) * live[k]).sum())
+        block += int((hit.any(1) * tv * n_live[k]).sum())
+        warps = hit.reshape(hit.shape[0], tv // 32, 32).any(2).sum(1)
+        warp += int((warps * 32 * (-(-n_live[k] // 8) * 8)).sum())
+    return needed, block, warp
 
 
-def _pu_bound(f, v, vp, k_, p_, n_items, pairs) -> dict:
+def _pu_bound(f, v, vp, k_, p_, n_items, pairs, tensor_cores: bool) -> dict:
     """The PU kernel's bound: per needed pair 3 differences, d2 5, s 1, TPS
-    phi 5, x valid 1, 3F FMAs; bytes: points, perm, forced ids, items,
-    offsets, ctrl, valid, (K, P, 3F) weights, tails, geometry, (F, V, 3)
-    out."""
+    phi 5, x valid 1 at the f32 rate, and the contraction: on the tensor
+    cores (a shot) 3 passes x 2 x the 3F columns it needs at the TF32 rate,
+    beside the rest (their pipes overlap), or on the CUDA cores (one pose;
+    the CUDA-core formula) 3F FMAs a pair at the f32 rate; bytes: points,
+    perm, forced ids, items, offsets, ctrl, valid, (K, P, 3F) weights,
+    tails, geometry, (F, V, 3) out."""
     n_bytes = (16 * v + 4 * vp + 4 * n_items + 4 * (vp // 256 + 1) + 16 * k_ * p_
                + 12 * f * k_ * p_ + 48 * f * k_ + 36 * k_ + 12 * f * v)
-    return _bound(n_bytes, ((15 + 6 * f) * pairs, PEAK_F32))
+    if not tensor_cores:
+        return _bound(n_bytes, ((15 + 6 * f) * pairs, PEAK_F32))
+    return _bound(n_bytes, (15 * pairs, PEAK_F32), (6 * 3 * f * pairs, PEAK_TF32))
+
+
+def _jac_bound(f, v, n, tensor_cores: bool = True) -> dict:
+    """The Jacobian kernel's bound at L = 1: per pair d2 8, s 1, phi' 2,
+    the three D_b = phi' (c - x)_b 3 at the f32 rate, and the contraction
+    on the tensor cores, 3 passes x 2 x the 9F (b, frame, a) columns it
+    needs at the TF32 rate, beside the rest (their pipes overlap); or the
+    CUDA-core formula (tensor_cores=False, the scalar kernel's): d2 8, s 1, phi'
+    2, g 2 and per frame 3 x (mul, add, 3 FMAs) = 24 at the f32 rate;
+    bytes: points, (F, V, 3, 3) out, ctrl, inv_eps2, (N, 3F) weights."""
+    n_bytes = 12 * v + 36 * f * v + 16 * n + 12 * f * n
+    if not tensor_cores:
+        return _bound(n_bytes, ((13 + 24 * f) * v * n, PEAK_F32))
+    return _bound(n_bytes, (14 * v * n, PEAK_F32), (6 * 9 * f * v * n, PEAK_TF32))
 
 
 def main_path_pu(dev, label: str) -> dict:
@@ -1739,10 +1908,8 @@ def main_path_pu_shot(dev, label: str) -> dict:
     from facedeform_tpu_torch.ops.falloff import falloff_weight
     from facedeform_tpu_torch.ops.tangent import project_to_tangents
 
-    centers = ((0, 1, 0), (1, 0, 0), (0, 0, 1), (0, -1, 0), (-1, 0, 0), (0, 0, -1),
-               (0.7, 0.7, 0), (0, 0.7, 0.7))
-    rest, frames = _bump_rig(20000, centers)
-    n_frames = len(centers)
+    rest, frames = _bump_rig(20000, PU_SHOT_CENTERS)
+    n_frames = len(PU_SHOT_CENTERS)
     pts_np = uv_sphere(1000, 1000).points
     pts = torch.as_tensor(pts_np, device=dev)
     v = pts.shape[0]
@@ -1791,7 +1958,8 @@ def main_path_pu_shot(dev, label: str) -> dict:
     interp = float((at_ctrl - torch.as_tensor(frames - rest[None], device=dev)).abs().max())
     print(f"PU shot at {v} x {len(rest)} x {n_frames}: vs the plain twin max |d| {err_twin:.3e} "
           f"({err_twin / scale:.3e} of max|disp|); frames vs single-pose kernel runs max |d| "
-          f"{worst:.3e} (tol {FRAME_VS_SINGLE_TOL:g}); apply_seq vs its plain composition "
+          f"{worst:.3e} (tol {FRAME_VS_SINGLE_TOL:g}; bit for bit {worst == 0.0}); apply_seq "
+          f"vs its plain composition "
           f"{err_seq:.3e}, falloff equal {bool(torch.equal(w, fw))}; interpolation at the "
           f"controls {interp:.3e}")
     _check(err_twin <= PU_TOL * scale, "the PU shot disagrees with the plain twin")
@@ -1800,7 +1968,7 @@ def main_path_pu_shot(dev, label: str) -> dict:
            "apply_seq disagrees with its plain composition")
     _check(interp < ORACLE_BUDGET, "PU shot interpolation at the controls misses the budget")
     return {"launches": launches, "seq": seq, "points": pts, "tplan": tplan, "rest": rest,
-            "frames": frames}
+            "frames": frames, "err_twin": err_twin}
 
 
 def _profile(fn, label: str, top: int = 10) -> None:
@@ -1861,14 +2029,20 @@ def time_pu(main_f: dict, shot: dict, label: str) -> list:
     pairs8 = _pu_pairs(models[0], pts, splan, dev)
     k1, p1 = d.model.valid.shape
     k8, p8 = models[0].valid.shape
-    b1 = _pu_bound(1, v, len(tplan.forced_patch), k1, p1, len(tplan.item_patch), pairs1)
-    b8 = _pu_bound(8, v, len(splan.forced_patch), k8, p8, len(splan.item_patch), pairs8)
-    for name, pairs, b, ms, plain_ms in (
-            (f"{v} x {n30}", pairs1, b1, t["pu kernel"][0], t["pu twin"][0]),
-            (f"{v} x {n20} x 8 frames", pairs8, b8, t["pu kernel F=8"][0], t["pu twin F=8"][0])):
-        print(f"PU kernel at {name}: {pairs} needed pairs ({pairs / ms / 1e6:.1f} Gpairs/s), "
-              f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['bound_ms'] / ms * 100:.1f}% "
-              f"of the kernel's time); the twin takes {plain_ms / ms:.2f}x")
+    shape1 = (v, len(tplan.forced_patch), k1, p1, len(tplan.item_patch), pairs1[0])
+    shape8 = (v, len(splan.forced_patch), k8, p8, len(splan.item_patch), pairs8[0])
+    b1, b8 = _pu_bound(1, *shape1, tensor_cores=False), _pu_bound(8, *shape8, tensor_cores=True)
+    for name, (needed, block, warp), b, old, ms, plain_ms in (
+            (f"{v} x {n30}", pairs1, b1, b1,
+             t["pu kernel"][0], t["pu twin"][0]),
+            (f"{v} x {n20} x 8 frames", pairs8, b8, _pu_bound(8, *shape8, tensor_cores=False),
+             t["pu kernel F=8"][0], t["pu twin F=8"][0])):
+        print(f"PU kernel at {name}: {needed} needed pairs ({needed / ms / 1e6:.1f} Gpairs/s); "
+              f"computed with the warp skip {warp} ({warp / needed:.3f}x needed), with a block skip "
+              f"{block} ({block / needed:.3f}x); bound {b['bound_ms']:.4f} ms by "
+              f"{b['bound_by']} ({b['bound_ms'] / ms * 100:.1f}% of the kernel's time; CUDA-core "
+              f"formula {old['bound_ms']:.4f} ms, {old['bound_ms'] / ms * 100:.1f}%); the twin "
+              f"takes {plain_ms / ms:.2f}x  [{label}]")
 
     # fits, host builds and the cached-plan displacement: host-clock walls
     # around work ending in a synchronize, one warm-up each, then rounds
@@ -1921,13 +2095,130 @@ def time_pu(main_f: dict, shot: dict, label: str) -> list:
     _profile(fit30, "fit_pu 30k")
     _profile(one, f"pu kernel {v} x {n30}", top=3)
     _profile(lambda: d.displacement(pts), f"PUDeformer.displacement {v} (plan cached)", top=3)
+    src = "facedeform_tpu_torch/csrc/pu.cu"
     return [
-        {"name": "pu_tiles", "route": "cuda",
-         "source": "facedeform_tpu_torch/csrc/pu.cu",
+        {"name": "pu_tiles", "route": "cuda", "source": src,
          "replaces": "facedeform_tpu/ops/pallas_pu.py:412",
-         "launches": main_f["launches"] + shot["launches"], "max_abs_err": main_f["err_twin"],
+         "launches": main_f["launches"], "max_abs_err": main_f["err_twin"],
          "ms": t["pu kernel"][0], "plain_ms": t["pu twin"][0], **b1, "library_ms": None},
+        {"name": "pu_tiles_frames", "route": "cuda", "source": src,
+         "replaces": "facedeform_tpu/ops/pallas_pu.py:412",
+         "launches": shot["launches"], "max_abs_err": shot["err_twin"],
+         "ms": t["pu kernel F=8"][0], "plain_ms": t["pu twin F=8"][0], **b8,
+         "library_ms": None},
     ]
+
+
+def time_pu_jac(dev, label: str) -> dict:
+    """--pu-jac, part alone: the PU tile kernel at 1M x 30k (config 9, one
+    pose) and 1M x 20k x 8 frames (config 10) and the Jacobian kernel at 1M
+    x 1k, single pose and F = 8 (slice B's shot), each through the wrapper
+    the main path calls, best of 5 interleaved rounds of 10 launches.  It
+    calls only entry points the parent commit has too, so run from a parent
+    checkout it times the parent's kernels by the same code.  Returns
+    {name: (best, median, spread)}."""
+    from facedeform_tpu_torch import DeformConfig, DeformParams
+    from facedeform_tpu_torch.benchmark import stats, time_cuda
+    from facedeform_tpu_torch.config import RBFKernel
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points, uv_sphere
+    from facedeform_tpu_torch.ops import cuda_eval, cuda_jacobian, cuda_pu, pu, temporal
+    from facedeform_tpu_torch.ops.fit import effective_kernel
+    from facedeform_tpu_torch.parallel import batched
+
+    tps = RBFKernel.THIN_PLATE
+    pts_np = uv_sphere(1000, 1000).points
+    pts = torch.as_tensor(pts_np, device=dev)
+    rest, frames = _bump_rig(30000)
+    d = pu.PUDeformer.fit(rest, frames[0], kernel=tps, lam=1e-5, device=dev)
+    tplan = cuda_pu.plan_eval_tiles(d.patches, pts_np)
+    srest, sframes = _bump_rig(20000, PU_SHOT_CENTERS)
+    seq = pu.PUSeqDeformer.fit(srest, sframes, kernel=tps, lam=1e-5, device=dev)
+    splan = cuda_pu.plan_eval_tiles(seq.patches, pts_np)
+    models = tuple(p.model for p in seq.puds)
+    # slice B's shot (main_path_frames)
+    rng = np.random.default_rng(0)
+    brest = fibonacci_points(1000)
+    raw = np.stack([brest + 0.05 * rng.standard_normal((1000, 3)).astype(np.float32)
+                    for _ in range(8)])
+    cfg = DeformConfig(tangent=True)
+    model, _ = batched.fit_frames(brest, temporal.smooth_frames(raw, window=5), cfg,
+                                  DeformParams(), device=dev)
+    kernel, term = effective_kernel(cfg), cfg.term
+    one = cuda_eval.frame_model(model, 0)
+    fns = {
+        "pu 1M x 30k": lambda: cuda_pu.evaluate_pu_tiles(d.model, pts, tplan, d.kernel),
+        "pu 1M x 20k x 8": lambda: cuda_pu.evaluate_pu_tiles_frames(models, pts, splan,
+                                                                    seq.kernel),
+        "jacobian 1M x 1k": lambda: cuda_jacobian.jacobian_cuda(one, pts, kernel, term),
+        "jacobian 1M x 1k x 8": lambda: cuda_jacobian.jacobian_cuda_frames(model, pts, kernel,
+                                                                          term),
+    }
+    t = {k: stats(x) for k, x in time_cuda(fns, rounds=5, iters=10).items()}
+    for k, x in t.items():
+        print(_fmt(k, x, f"  [{label}]"))
+    # the 8-frame shapes as two launches of 4 frames (smaller accumulators,
+    # more blocks an SM): the frames-per-launch choice
+    jac_step, pu_step = cuda_jacobian.JAC_FRAMES_PER_LAUNCH, cuda_pu.FRAMES_PER_LAUNCH
+    cuda_jacobian.JAC_FRAMES_PER_LAUNCH = cuda_pu.FRAMES_PER_LAUNCH = 4
+    try:
+        t4 = {k: stats(x) for k, x in time_cuda(
+            {k: fns[k] for k in ("pu 1M x 20k x 8", "jacobian 1M x 1k x 8")},
+            rounds=5, iters=10).items()}
+    finally:
+        cuda_jacobian.JAC_FRAMES_PER_LAUNCH, cuda_pu.FRAMES_PER_LAUNCH = jac_step, pu_step
+    for k, x in t4.items():
+        print(_fmt(k + " as 2 launches of 4 frames", x, f"  [{label}]"))
+    for name, m, plan in (("1M x 30k", d.model, tplan), ("1M x 20k x 8", models[0], splan)):
+        needed, block, warp = _pu_pairs(m, pts, plan, dev)
+        print(f"PU pairs at {name}: {needed} needed; computed {warp} with a warp skip "
+              f"({warp / needed:.3f}x), {block} with a block skip ({block / needed:.3f}x)")
+    # each timed output against its plain twin; the Jacobians also against a
+    # float64 one on a 65536-vertex subset, relative to max(1, max|J|)
+    for name, ms, twin in (
+            ("pu 1M x 30k", (d.model,), lambda: cuda_pu.evaluate_pu_tiles_reference(
+                (d.model,), pts, tplan, d.kernel)[0]),
+            ("pu 1M x 20k x 8", models, lambda: cuda_pu.evaluate_pu_tiles_reference(
+                models, pts, splan, seq.kernel))):
+        want = twin()
+        e = float((fns[name]() - want).abs().max()) / float(want.abs().max())
+        print(f"{name}: |kernel - twin| / max|disp| {e:.3e} (tol {PU_TOL:g})")
+    idx = torch.linspace(0, pts.shape[0] - 1, 65536, device=dev).long()
+    j64 = _jacobian64(model, pts[idx], kernel, term)
+    scale = max(1.0, float(j64.abs().max()))
+    twin = cuda_jacobian.jacobian_frames_reference(model, pts[idx], kernel, term)
+    got8 = fns["jacobian 1M x 1k x 8"]()[:, idx]
+    got1 = fns["jacobian 1M x 1k"]()[idx]
+    rel = lambda a, b: float((a.double() - b).abs().max()) / scale  # noqa: E731
+    print(f"jacobian 1M x 1k, 65536-vertex subset, relative to max(1, max|J|) = {scale:.3e}: "
+          f"kernel F=8 vs float64 {rel(got8, j64):.3e}, single {rel(got1, j64[0]):.3e}; plain "
+          f"twin vs float64 {rel(twin, j64):.3e}; kernel F=8 vs twin "
+          f"{rel(got8, twin.double()):.3e} (tol {JAC_TOL_DECAYING:g})")
+    print(json.dumps({"pu_jac": {k: list(x) for k, x in t.items()}, "device": label}))
+    return t
+
+
+def _jacobian64(model, pts, kernel, term, chunk=4096):
+    """Float64 Jacobian of a frames-stacked model, written out: J[a][b] =
+    sum_lj g w_a (x - c)_b + the linear tail, g = 2 phi'(s) / eps^2;
+    (F, V, 3, 3)."""
+    from facedeform_tpu_torch.config import PolyTerm
+    from facedeform_tpu_torch.ops.kernels import phi_prime_s
+
+    c, w, eps = model.ctrl.double(), model.w_rbf.double(), model.eps.double()
+    outs = []
+    for p in torch.split(pts.double(), chunk):
+        d = p[:, None] - c[None]                                    # (v, N, 3)
+        d2 = (d * d).sum(-1)
+        jac = 0.0
+        for layer in range(eps.shape[0]):
+            ie = 1.0 / (eps[layer] * eps[layer])
+            g = 2.0 * phi_prime_s(kernel, d2 * ie) * ie
+            jac = jac + torch.einsum("vn,fna,vnb->fvab", g, w[:, layer], d)
+        outs.append(jac)
+    jac = torch.cat(outs, dim=1)
+    if PolyTerm(term) == PolyTerm.LINEAR and model.w_poly.shape[1] >= 4:
+        jac = jac + model.w_poly.double()[:, 1:4].transpose(1, 2)[:, None]
+    return jac
 
 
 def _ptxas_summary(log: str) -> list:
@@ -1971,6 +2262,10 @@ def main() -> int:
     if "--precise-bases" in sys.argv[1:]:
         # the precise kernel's per-basis timing alone
         time_precise_bases(dev, label)
+        return 0
+    if "--pu-jac" in sys.argv[1:]:
+        # the PU and Jacobian kernels' timing alone
+        time_pu_jac(dev, label)
         return 0
 
     check_kernels(dev)

@@ -1,6 +1,7 @@
 // Device helpers shared by the port's hand-written kernels (eval.cu,
-// frames.cu, jacobian.cu): the seven radial bases and their s-derivatives,
-// the per-vertex capture inputs, the reference's oblique tangent
+// frames.cu, jacobian.cu, precise.cu, pu.cu): the seven radial bases and
+// their s-derivatives, the 3xTF32 tensor-core contraction and cp.async
+// staging, the per-vertex capture inputs, the reference's oblique tangent
 // projection and the falloff write.  Accurate expf/logf/sqrtf/rsqrtf, no
 // fast-math: the 5e-5 displacement budget is the contract.
 
@@ -8,6 +9,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -41,7 +43,10 @@ __device__ __forceinline__ float phi_of(float s) {
   if constexpr (B == GAUSSIAN) {
     return expf(-s);
   } else if constexpr (B == THIN_PLATE) {
-    return s > 1e-30f ? 0.5f * s * logf(fmaxf(s, 1e-30f)) : 0.0f;
+    // the log outside the guard: a select, not a branch around each log,
+    // so several chains of a thread interleave
+    const float l = logf(fmaxf(s, 1e-30f));
+    return s > 1e-30f ? 0.5f * s * l : 0.0f;
   } else if constexpr (B == MULTIQUADRIC) {
     return sqrtf(1.0f + s);
   } else if constexpr (B == INVERSE_MULTIQUADRIC) {
@@ -65,7 +70,8 @@ __device__ __forceinline__ float phi_prime_of(float s) {
   if constexpr (B == GAUSSIAN) {
     return -expf(-s);
   } else if constexpr (B == THIN_PLATE) {
-    return s > 1e-30f ? 0.5f * (logf(fmaxf(s, 1e-30f)) + 1.0f) : 0.0f;
+    const float l = logf(fmaxf(s, 1e-30f));
+    return s > 1e-30f ? 0.5f * (l + 1.0f) : 0.0f;
   } else if constexpr (B == MULTIQUADRIC) {
     return 0.5f * rsqrtf(1.0f + s);
   } else if constexpr (B == INVERSE_MULTIQUADRIC) {
@@ -79,6 +85,80 @@ __device__ __forceinline__ float phi_prime_of(float s) {
     const float b = fmaxf(1.0f - sqrtf(s), 0.0f);
     return -10.0f * b * b * b;
   }
+}
+
+// ---- 3xTF32 contraction on the tensor cores (pu.cu, jacobian.cu) --------
+//
+// mma.sync.m16n8k8 with tf32 inputs and f32 accumulation: per warp, a
+// 16 x 8 A tile times an 8 x 8 B tile.  Lane l = 4 g + t (g = l >> 2,
+// t = l & 3) holds A[g][t], A[g + 8][t], A[g][t + 4], A[g + 8][t + 4]
+// (a0..a3), B[t][g] and B[t + 4][g] (b0, b1), and C[g][2t], C[g][2t + 1],
+// C[g + 8][2t], C[g + 8][2t + 1] (c0..c3).  Every operand is split into
+// two tf32 words, hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi) (the
+// subtraction exact), and a product is A_lo B_hi + A_hi B_lo + A_hi B_hi:
+// about 22 bits of each operand, the TPU's Precision.HIGHEST, where one
+// tf32 pass keeps 11.  The tensor cores add inside an mma with truncation,
+// so each k-step's three passes go into a fresh C fragment that the
+// caller adds to its f32 accumulator (round to nearest) on the CUDA cores.
+// The kernels split the A tile they compute; B (weights, constant per
+// model) comes pre-split from the wrapper (ops/tf32.py, mma_fragments) as
+// one float4 (b0 hi, b1 hi, b0 lo, b1 lo) per lane.  The subtraction must
+// stay exact: __fsub_rn, never contracted into an FMA, no fast-math.
+
+// cvt.rna.tf32.f32 for a finite x, by integer arithmetic: half a tf32 ulp
+// added to the magnitude bits, then the 13 low bits cleared (ties away
+// from zero; a carry moves to the next binade, as the rounding does).  The
+// PTX instruction compiles to a longer sequence that also handles NaN and
+// infinity, which these operands never are (machine code, PERF.md).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc += A B for one k-step: the three passes into a zeroed fragment, small
+// terms first, then one f32 add per element.
+__device__ __forceinline__ void mma_3xtf32(float acc[4], const uint32_t ah[4],
+                                           const uint32_t al[4], float4 b) {
+  float c[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tf32(c, al, __float_as_uint(b.x), __float_as_uint(b.y));
+  mma_tf32(c, ah, __float_as_uint(b.z), __float_as_uint(b.w));
+  mma_tf32(c, ah, __float_as_uint(b.x), __float_as_uint(b.y));
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], c[e]);
+}
+
+// ---- cp.async staging (sm_80+): 16-byte copies global -> shared ---------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The block copies n floats (a multiple of 4; both ends 16-byte aligned).
+__device__ __forceinline__ void stage_async(float* dst, const float* src, int n) {
+  for (int q = threadIdx.x; q < n / 4; q += blockDim.x) cp_async16(dst + 4 * q, src + 4 * q);
 }
 
 __device__ __forceinline__ void normalize3(float v[3]) {

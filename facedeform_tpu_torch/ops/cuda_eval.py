@@ -124,13 +124,13 @@ def build() -> str:
     lib.fd_eval_culled.restype = i32
     lib.fd_eval_frames.argtypes = [ptr] * 12 + [i32] * 9 + [f32, f32, ptr]
     lib.fd_eval_frames.restype = i32
-    lib.fd_jacobian.argtypes = [ptr] * 5 + [i32] * 7 + [ptr]
+    lib.fd_jacobian.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
     lib.fd_jacobian.restype = i32
     lib.fd_eval_precise.argtypes = [ptr] * 13 + [i32] * 8 + [f32, f32, ptr]
     lib.fd_eval_precise.restype = i32
     lib.fd_log_probe.argtypes = [ptr] * 3 + [i32, ptr]
     lib.fd_log_probe.restype = i32
-    lib.fd_pu_tiles.argtypes = [ptr] * 12 + [i32] * 8 + [ptr]
+    lib.fd_pu_tiles.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
     lib.fd_pu_tiles.restype = i32
     _lib = lib
     return log

@@ -5,7 +5,18 @@ Counterpart of facedeform_tpu/ops/pallas_jacobian.py:
   jacobian_cuda               <- jacobian_pallas          (_jac_kernel)
   jacobian_cuda_frames        <- jacobian_pallas_frames   (_jac_kernel)
   jacobian_frames_reference   <- per-frame displacement_jacobian
+  jacobian_packed_reference   <- the kernel's function, plain: J from
+                                 the weight columns
 (the single-pose twin is ops.jacobian.displacement_jacobian itself).
+
+The TPU kernel contracts g = 2 phi'(s) / eps^2 with packed moment columns
+[w_a, w_a c_b] and forms J = A x - T.  Under the tensor cores' 3xTF32
+(ops/tf32.py) that difference cancels past the kernel's tolerance, so this
+kernel re-centers on each vertex: it contracts D_b = phi'(s) (c_b - x_b),
+which it computes, with the weight columns U = -2 w_a / eps^2 (L, N, 3F),
+frame f's in columns 3f .. 3f + 2 (weight_columns).  The wrapper hands it U
+pre-split into fragments, with the controls and 1/eps^2, per group of 8
+controls (_pack_launch).
 
 A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; it never falls back.  Each
@@ -18,14 +29,16 @@ from __future__ import annotations
 import torch
 
 from facedeform_tpu_torch.config import PolyTerm, RBFKernel
-from facedeform_tpu_torch.ops import cuda_eval
+from facedeform_tpu_torch.ops import cuda_eval, tf32
 from facedeform_tpu_torch.ops.jacobian import displacement_jacobian
+from facedeform_tpu_torch.ops.kernels import phi_prime_s
+from facedeform_tpu_torch.utils.precision import highest_precision
 
-# Frames per launch (kMaxJacFrames in csrc/jacobian.cu): 12 moments per
-# frame live in registers, so the wrapper loops over chunks.  8 holds
-# without spills (128 registers) and ran F = 8 in 7.34 ms against 8.85 ms
-# as two 4-frame launches (1M x 1k, H100).
+# Frames per launch: 3 weight columns a frame in at most 3 n8 tiles of the
+# mma (kMaxJacTiles in csrc/jacobian.cu); the wrapper loops over chunks.
 JAC_FRAMES_PER_LAUNCH = 8
+# n8 tiles of weight columns the kernel is instantiated for (NT).
+JAC_TILES = (1, 2, 3)
 
 
 def jacobian_frames_reference(model, points, kernel: RBFKernel, term: PolyTerm) -> torch.Tensor:
@@ -35,6 +48,74 @@ def jacobian_frames_reference(model, points, kernel: RBFKernel, term: PolyTerm) 
         displacement_jacobian(cuda_eval.frame_model(model, f), points, kernel, term)
         for f in range(model.w_rbf.shape[0])
     ])
+
+
+def weight_columns(w_rbf: torch.Tensor, inv_eps2: torch.Tensor) -> torch.Tensor:
+    """(F, L, N, 3) weights + (L, N) 1/eps^2 -> (L, N, 3F) columns U =
+    -2 w_a / eps^2, frame f's in columns 3f .. 3f + 2."""
+    f, n_layers, n, _ = w_rbf.shape
+    u = w_rbf * (-2.0 * inv_eps2)[None, :, :, None]
+    return u.permute(1, 2, 0, 3).reshape(n_layers, n, 3 * f)
+
+
+def _matmul(a, b) -> torch.Tensor:
+    with highest_precision():
+        return a @ b
+
+
+def _tail(jac, w_poly, term) -> torch.Tensor:
+    if PolyTerm(term) == PolyTerm.LINEAR and w_poly.shape[1] >= 4:
+        # poly_basis [1, x, y, z]: d(P c)_a / d x_b = w_poly[1 + b, a]
+        jac = jac + w_poly[:, 1:4].transpose(1, 2)[:, None]
+    return jac
+
+
+def jacobian_packed_reference(model, points, kernel: RBFKernel, term: PolyTerm,
+                              contract=None, chunk: int = 16384) -> torch.Tensor:
+    """The kernel's function, plain: a frames-stacked model (w_rbf (F, L,
+    N, 3), w_poly (F, m, 3)) -> (F, V, 3, 3).  Per layer and b the tile
+    D_b = phi'(s) (c_b - x_b), s = |c - x|^2 / eps^2, contracted with the
+    weight columns U_l, J[a][b] = sum_l D_b U_l, plus the tail.
+    contract(D, U) forms the contraction: by default an f32 matmul at full
+    precision; tf32.matmul_3xtf32 models the kernel's tensor-core passes."""
+    contract = contract or _matmul
+    inv_eps2 = cuda_eval._inv_eps2(model.eps)
+    u = weight_columns(model.w_rbf, inv_eps2)
+    f_n = model.w_rbf.shape[0]
+    outs = []
+    for pts in torch.split(points.float(), chunk):
+        d = model.ctrl[None] - pts[:, None]                              # (v, N, 3)
+        d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+        acc = [0.0, 0.0, 0.0]
+        for layer in range(u.shape[0]):
+            q = phi_prime_s(kernel, d2 * inv_eps2[layer])
+            acc = [acc[b] + contract(q * d[..., b], u[layer]) for b in range(3)]
+        jac = torch.stack(acc, dim=-1)                                   # (v, 3F, 3)
+        outs.append(jac.reshape(-1, f_n, 3, 3).transpose(0, 1))
+    return _tail(torch.cat(outs, dim=1), model.w_poly, term)
+
+
+def _pack_launch(ctrl, u, inv_eps2, f0: int, nf: int):
+    """Operands of the launch of frames [f0, f0 + nf): the stream (T, 32 +
+    8 L + 128 L NT), per group of 8 controls (x, y, z, 0) each, the L x 8
+    1/eps^2 (1 past N: finite phi' on zero columns), then per layer the
+    weight columns 3 f0 .. 3 (f0 + nf) zero-padded to NT n8 tiles, split
+    into tf32 words in mma fragment order; and NT."""
+    n_layers, n, _ = u.shape
+    nt = tf32.n_tiles(3 * nf, JAC_TILES)
+    npad = -(-n // 8) * 8
+    c4 = ctrl.new_zeros((npad, 4))
+    c4[:n, :3] = ctrl
+    ie = ctrl.new_ones((n_layers, npad))
+    ie[:, :n] = inv_eps2
+    uc = u.new_zeros((n_layers, npad, 8 * nt))
+    uc[:, :n, :3 * nf] = u[:, :, 3 * f0:3 * (f0 + nf)]
+    frags = tf32.mma_fragments(uc)                           # (L, T, NT, 32, 4)
+    t = npad // 8
+    stream = torch.cat([c4.reshape(t, 32),
+                        ie.reshape(n_layers, t, 8).transpose(0, 1).reshape(t, 8 * n_layers),
+                        frags.transpose(0, 1).reshape(t, -1)], dim=1)
+    return stream.contiguous(), nt
 
 
 def _launch(ctrl, w_rbf, eps, w_poly, points, kernel, term, counter) -> torch.Tensor:
@@ -59,24 +140,22 @@ def _launch(ctrl, w_rbf, eps, w_poly, points, kernel, term, counter) -> torch.Te
     if v == 0:
         return out
     cuda_eval.build()
-    w_pack = cuda_eval.pack_frames(w_rbf)
     inv_eps2 = cuda_eval._inv_eps2(eps)
+    u = weight_columns(w_rbf, inv_eps2)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         for f0 in range(0, n_frames, JAC_FRAMES_PER_LAUNCH):
             nf = min(JAC_FRAMES_PER_LAUNCH, n_frames - f0)
+            stream_t, nt = _pack_launch(ctrl, u, inv_eps2, f0, nf)
             err = cuda_eval._lib.fd_jacobian(
-                points.data_ptr(), ctrl.data_ptr(), w_pack.data_ptr(),
-                inv_eps2.data_ptr(), out.data_ptr(), v, n, n_layers, n_frames,
-                f0, nf, int(RBFKernel(kernel)), stream,
+                points.data_ptr(), stream_t.data_ptr(), out.data_ptr(), v,
+                stream_t.shape[0], n_layers, n_frames, f0, nf, nt,
+                int(RBFKernel(kernel)), stream,
             )
             if err != 0:
                 raise RuntimeError(f"fd_jacobian launch failed: CUDA error {err}")
             counter.launches += 1
-    if PolyTerm(term) == PolyTerm.LINEAR and w_poly.shape[1] >= 4:
-        # poly_basis [1, x, y, z]: d(P c)_a / d x_b = w_poly[1 + b, a]
-        out += w_poly[:, 1:4].transpose(1, 2)[:, None]
-    return out
+    return _tail(out, w_poly, term)
 
 
 def _on_card(points, name) -> bool:

@@ -12,10 +12,17 @@ The plan lists (vertex tile, patch) items sorted by vertex tile over the
 Z-ordered query points.  The kernel runs one block per vertex tile, walks
 that tile's items and accumulates sum_k W_k s_k and sum_k W_k in
 registers, then normalizes and writes each point back to the caller's
-order.  The wrapper runs the plain twin only for tensors on the CPU; for
-CUDA tensors it launches the kernel or raises.  It counts its launches in
-evaluate_pu_tiles_frames.launches (the one-pose entry delegates to it).
-The kernel is built with the others by ops.cuda_eval.build().
+order; it contracts phi with the weight columns of several frames on the
+tensor cores (3xTF32, ops/tf32.py), so the wrapper hands it the weights
+pre-split into fragments, with the centered controls, per k-step of 8
+controls (_pack_launch); one pose it contracts on the CUDA cores, so a
+frame of a shot equals its one-pose launch within the kernel's tolerance,
+not bit for bit (frames of any two shot launches are bit-equal).  The
+wrapper runs the plain twin only for tensors on the CPU; for CUDA tensors
+it launches the kernel or raises.  It counts its
+launches in evaluate_pu_tiles_frames.launches (the one-pose entry
+delegates to it).  The kernel is built with the others by
+ops.cuda_eval.build().
 """
 
 from __future__ import annotations
@@ -24,14 +31,17 @@ import numpy as np
 import torch
 
 from facedeform_tpu_torch.config import RBFKernel
-from facedeform_tpu_torch.ops import cuda_eval
+from facedeform_tpu_torch.ops import cuda_eval, tf32
 from facedeform_tpu_torch.ops.kernels import apply_kernel
 from facedeform_tpu_torch.ops.pu import _TILES_PER_BLOCK, coverage_and_fallback
 from facedeform_tpu_torch.utils.precision import highest_precision
 
-# Frames per launch (kMaxFrames in csrc/pu.cu): the kernel keeps 2 x 3F
-# accumulators per thread in registers, so longer shots loop over chunks.
+# Frames per launch: the kernel keeps 3F columns per point in registers,
+# at most 6 n8 tiles of the mma, so longer shots loop over chunks.
 FRAMES_PER_LAUNCH = 16
+# n8 tiles of weight columns the kernel is instantiated for (NT; one pose
+# takes NT = 0, its CUDA-core path).
+PU_TILES = (1, 2, 3, 6)
 # Threads per block of the kernel: one per point of a vertex tile.
 KERNEL_TILE_V = 256
 
@@ -147,6 +157,44 @@ def _pack_frames_operands(models):
     return c(base.ctrl), c(base.valid), c(w), c(poly), c(geom)
 
 
+def launch_tiles(nf: int) -> int:
+    """NT of a launch of nf frames: 0 for one pose, else the n8 tiles of
+    its 3nf weight columns."""
+    return 0 if nf == 1 else tf32.n_tiles(3 * nf, PU_TILES)
+
+
+def _centered_controls(ctrl, cvalid, geom) -> torch.Tensor:
+    """(K, 8T, 4): per control (ctrl - c_k) * valid and valid, the rows
+    padded with zeros to whole k-steps of 8 (a padded control's phi is
+    finite and multiplied by 0)."""
+    k_, p_, _ = ctrl.shape
+    lc4 = ctrl.new_zeros((k_, -(-p_ // 8) * 8, 4))
+    lc4[:, :p_, :3] = (ctrl - geom[:, None, :3]) * cvalid[..., None]
+    lc4[:, :p_, 3] = cvalid
+    return lc4
+
+
+def _pack_launch(lc4, w, poly, f0: int, nf: int):
+    """Operands of the launch of frames [f0, f0 + nf): the stream, per
+    k-step the 8 centered controls, then for several frames (K, T, 32 +
+    128 NT) the weight columns 3 f0 .. 3 (f0 + nf) zero-padded to cp = 8 NT,
+    split into tf32 words in mma fragment order, or for one frame (K, T,
+    64) its f32 weights (x, y, z, 0) per control (NT = 0: the kernel
+    contracts one pose on the CUDA cores); the tails (K, 4, cp), cp = 8 for
+    one frame; NT."""
+    k_, pp, _ = lc4.shape
+    nt = launch_tiles(nf)
+    cp = 8 * max(nt, 1)
+    cols = slice(3 * f0, 3 * (f0 + nf))
+    wc = w.new_zeros((k_, pp, 4 if nf == 1 else cp))
+    wc[:, :w.shape[1], :3 * nf] = w[:, :, cols]
+    words = wc if nf == 1 else tf32.mma_fragments(wc)           # (K, T, NT, 32, 4)
+    stream = torch.cat([lc4.reshape(k_, pp // 8, 32), words.reshape(k_, pp // 8, -1)], dim=2)
+    pc = poly.new_zeros((k_, 4, cp))
+    pc[:, :, :3 * nf] = poly[:, :, cols]
+    return stream.contiguous(), pc, nt
+
+
 def _phi_s(kernel, s):
     """phi of an already normalized s = d2 / eps^2 (the kernel's form)."""
     return apply_kernel(kernel, s, 1.0)
@@ -163,7 +211,7 @@ def _check_plan(points, plan: PUTilePlan):
 
 
 def evaluate_pu_tiles_reference(models, points, plan: PUTilePlan,
-                                kernel: RBFKernel) -> torch.Tensor:
+                                kernel: RBFKernel, contract=None) -> torch.Tensor:
     """Plain PyTorch twin of the tile kernel: (F, V, 3).
 
     Per item (vertex tile, patch k), as the kernel computes it: centered
@@ -174,7 +222,9 @@ def evaluate_pu_tiles_reference(models, points, plan: PUTilePlan,
     patch, compared as integers; times the lane's valid flag; 0 for dead
     items k < 0); accumulate w * s and w per point, normalize
     where(acc_w > 1e-30, acc_d / acc_w, 0) and un-permute.  The tail's
-    terms are implied by the models' poly rows."""
+    terms are implied by the models' poly rows.  contract(phi, w) forms the
+    contraction: by default an f32 matmul at full precision;
+    tf32.matmul_3xtf32 models the kernel's tensor-core passes."""
     _check_plan(points, plan)
     item_patch, item_vt, forced_patch, perm, inv_perm, _ = plan.device_arrays(points.device)
     tile_v = plan.tile_v
@@ -209,8 +259,11 @@ def evaluate_pu_tiles_reference(models, points, plan: PUTilePlan,
         d = [lc[:, None, :, a] - xl[:, :, None, a] for a in range(3)]
         d2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]            # (B, tv, P)
         phi = _phi_s(kernel, d2 * inv_eps2) * cv[:, None, :]
-        with highest_precision():
-            disp = phi @ w_all[kc]                              # (B, tv, C)
+        if contract is None:
+            with highest_precision():
+                disp = phi @ w_all[kc]                          # (B, tv, C)
+        else:
+            disp = contract(phi, w_all[kc])
         wp = poly[kc]                                           # (B, 4, C)
         disp = (disp + wp[:, None, 0] + wp[:, None, 1] * xl[..., 0:1]
                 + wp[:, None, 2] * xl[..., 1:2] + wp[:, None, 3] * xl[..., 2:3])
@@ -257,17 +310,18 @@ def evaluate_pu_tiles_frames(models, points, plan: PUTilePlan,
     # controls past the last live one contribute phi * 0: skip them
     n_live = ((cvalid > 0).int() * torch.arange(1, p_ + 1, device=dev, dtype=torch.int32)
               ).amax(1).to(torch.int32).contiguous()
+    lc4 = _centered_controls(ctrl, cvalid, geom)
     cuda_eval.build()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         for f0 in range(0, f_n, FRAMES_PER_LAUNCH):
             nf = min(FRAMES_PER_LAUNCH, f_n - f0)
+            stream_t, poly_c, nt = _pack_launch(lc4, w, poly, f0, nf)
             err = cuda_eval._lib.fd_pu_tiles(
                 points.data_ptr(), perm.data_ptr(), forced_patch.data_ptr(),
-                item_patch.data_ptr(), item_offsets.data_ptr(), ctrl.data_ptr(),
-                cvalid.data_ptr(), n_live.data_ptr(), w.data_ptr(), poly.data_ptr(),
-                geom.data_ptr(), out.data_ptr(), num_points, n_vt, k_, p_, f_n, f0, nf,
-                int(kernel), stream,
+                item_patch.data_ptr(), item_offsets.data_ptr(), stream_t.data_ptr(),
+                n_live.data_ptr(), poly_c.data_ptr(), geom.data_ptr(), out.data_ptr(),
+                num_points, n_vt, k_, lc4.shape[1] // 8, f_n, f0, nf, nt, int(kernel), stream,
             )
             if err != 0:
                 raise RuntimeError(f"fd_pu_tiles launch failed: CUDA error {err}")

@@ -356,11 +356,14 @@ def fit_frames_dense(
     The saddle system depends only on the rest rig and the layer radius,
     so every frame of a shot is 3 more right-hand-side columns: one
     assembly, one LU and one refined solve of (N + m, 3F) per layer.
-    Returns (model with w_rbf (F, L, N, 3) and w_poly (F, m, 3), lo words
-    dropped as in the JAX package; per-frame residual norms (F,), each
-    frame's worst layer; the aggregate SolveReport of the worst layer).
-    Growing kernels refine in 3-column blocks, one GMRES-IR per pose: the
-    per-pose route's solve, which keeps the lo words.
+    Returns (model with w_rbf (F, L, N, 3) and w_poly (F, m, 3); per-frame
+    residual norms (F,), each frame's worst layer; the aggregate
+    SolveReport of the worst layer).  Decaying kernels drop the lo words,
+    as the JAX package does.  Growing kernels refine in 3-column blocks,
+    one GMRES-IR per pose: the per-pose route's solve, and they keep its lo
+    words (w_rbf_lo (F, L, N, 3), w_poly_lo (F, m, 3)), so the two routes
+    give equal models bit for bit.  (The JAX package's shared route drops
+    them for growing kernels too.)
     """
     n, f = rest_ctrl.shape[0], deformed_frames.shape[0]
     kernel = _check_dense_route(cfg, n)
@@ -369,22 +372,25 @@ def fit_frames_dense(
     target = deformed_frames.float() - rest_ctrl[None]          # (F, N, 3)
     eps0, lam0 = _family_radii(cfg, params, rest_ctrl, confidence)
 
-    w_layers, eps_layers, reports, frame_resids = [], [], [], []
+    keep_lo = kernel in GROWING_KERNELS
+    w_layers, w_lo_layers, eps_layers, reports, frame_resids = [], [], [], [], []
     w_poly = torch.zeros((f, cfg.n_poly, 3), device=rest_ctrl.device)
+    w_poly_lo = torch.zeros_like(w_poly)
     for layer in range(cfg.n_layers):
         eps_l = eps0 * (0.5 ** layer)
         term = cfg.term if layer == 0 else PolyTerm.ZERO
         b = _pack(assemble_rhs(target, term))
-        a, (x, _), report = _dense_layer_solve(
+        a, (x, x_lo), report = _dense_layer_solve(
             rest_ctrl, kernel, term, eps_l, lam0, b, cfg.n_refine)
         frame_resids.append(_frames_report(report, a, x, b, f).residual_norm)
-        x_f = _unpack(x, f)                                      # (F, rows, 3)
+        x_f, x_lo_f = _unpack(x, f), _unpack(x_lo, f)            # (F, rows, 3)
         w_l = x_f[:, :n]
         w_layers.append(w_l)
+        w_lo_layers.append(x_lo_f[:, :n])
         eps_layers.append(eps_l)
         reports.append(report)
         if layer == 0 and cfg.n_poly > 0:
-            w_poly = x_f[:, n:]
+            w_poly, w_poly_lo = x_f[:, n:], x_lo_f[:, n:]
         if layer + 1 < cfg.n_layers:
             with highest_precision():
                 ax = a @ x
@@ -394,6 +400,8 @@ def fit_frames_dense(
         w_rbf=torch.stack(w_layers, dim=1),
         w_poly=w_poly,
         eps=torch.stack(eps_layers),
+        w_rbf_lo=torch.stack(w_lo_layers, dim=1) if keep_lo else None,
+        w_poly_lo=w_poly_lo if keep_lo else None,
     )
     resid = torch.amax(torch.stack(frame_resids), dim=0)
     return model, resid, _worst_report(reports)

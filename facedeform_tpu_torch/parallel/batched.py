@@ -44,8 +44,9 @@ from facedeform_tpu_torch.ops.jacobian import (
 # GB estimated).  The budget is three eighths of an 80 GB card, the share
 # of device memory the JAX package's 6e9 left the fit on a 15.75 GB v5e.
 # Growing kernels make no F copies: both routes run one factorization and
-# the same per-pose GMRES-IR, so for them the budget decides only whether
-# the lo words are kept (dropped past it, as in the JAX package).
+# the same per-pose GMRES-IR and keep its lo words, so for them the two
+# routes give the same model bit for bit (the JAX package's shared route
+# drops the lo words).
 vmap_fit_hbm_budget = 30e9
 
 
@@ -81,9 +82,10 @@ def fit_frames(
     (F, m, 3); ctrl and eps are frame-invariant.  Routing, as in the JAX
     package: the per-pose fit (fit_mod.fit_frames_per_pose, lo words
     stacked) while its temporaries fit vmap_fit_hbm_budget, the shared
-    factorization (fit_mod.fit_frames_dense, lo words dropped) above it.
-    For growing kernels the two routes run the same solve and differ only
-    in the lo words.  Check the residuals with utils.errors.check_frames."""
+    factorization (fit_mod.fit_frames_dense) above it, which drops the lo
+    words of decaying kernels.  For growing kernels the two routes run the
+    same solve and give the same model, lo words included.  Check the
+    residuals with utils.errors.check_frames."""
     rest_ctrl = _f32(rest_ctrl, device)
     deformed_frames = _f32(deformed_frames, device)
     if confidence is not None:

@@ -445,15 +445,16 @@ def test_tps_shot_per_pose_route():
 
 
 def test_tps_shot_shared_route_matches_jax(monkeypatch):
-    """The shared factorization forced (budget 0): lo words dropped as in
-    JAX, fields within 5e-5 of JAX's fit_frames_dense."""
+    """The shared factorization forced (budget 0): the lo words kept (JAX's
+    shared route drops them), fields within 5e-5 of JAX's fit_frames_dense."""
     n, f = 160, 3
     rest, frames = _shot(n, f, seed=6)
     jc = _cfg(K.THIN_PLATE)
     tc, tp = _port(jc)
     monkeypatch.setattr(tbatched, "vmap_fit_hbm_budget", 0.0)
     model, resid = tbatched.fit_frames(rest, frames, tc, tp, device="cpu")
-    assert model.w_rbf_lo is None and model.w_poly_lo is None
+    assert tuple(model.w_rbf_lo.shape) == (f, 1, n, 3)
+    assert tuple(model.w_poly_lo.shape) == (f, 4, 3)
     errors.check_frames(resid, rest, frames)
     jm, _, _ = jfit.fit_frames_dense(jnp.asarray(rest), jnp.asarray(frames), jc, PARAMS)
     pts = _mesh(300)[0]
