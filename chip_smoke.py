@@ -9,10 +9,17 @@
    nvcc per source, started together) and prints ptxas' register and
    spill counts per kernel;
 3. holds each kernel against its plain PyTorch version on the card, all 7
-   bases, L in {1, 4}, N in {1000, 2500}, a ragged V = 70002, with and
-   without a tangent frame:
-   - dense and culled eval: strict_parity both ways, 33% capture-active
-     plus a group gate (culled for gaussian and Wendland);
+   bases, a ragged V = 70002, with and without a tangent frame:
+   - dense and culled eval: L in {1, 2, 3, 4, 6} (every layer count the
+     kernels instantiate, 6 through the run-time-L kernel), N in {1000,
+     2500, 1003} (1003 not a multiple of the pair loop's unroll),
+     strict_parity both ways, 33% capture-active plus a group gate
+     (culled for gaussian and Wendland; growing kernels with a LINEAR tail,
+     centered, and a ZERO tail, uncentered);
+   - the eval kernels' packing on the card (control_records,
+     culled_tables) bit-equal to the plain twins and the slab table to the
+     JAX package's, N in {100, 1000, 1003, 4096}, L in {1, 3, 6}, tails of
+     0, 1 and 4 rows;
    - frames eval: F in {1, 8, 11, 17} (17 crosses the 16-frame launch
      chunk), a 33%-active folded weight;
    - Jacobian: single entry and F in {2, 3, 4, 8, 9} (every frames block
@@ -73,7 +80,9 @@
    20k-control x 8-pose PUSeqDeformer: displacement_frames and apply_seq
    (capture d2, gate, tangent frame), one launch each, every frame against
    its single-pose kernel run, the shot against the twin;
-7. times fit, each kernel and its plain version, the frames kernel against
+7. times fit, each kernel and its plain version (the dense and culled
+   kernels also alone, by the profiler, and the culled kernel's computed
+   against needed pairs), the frames kernel against
    8 dense launches, F = 8/11/16/17/32 per frame, both fit_frames routes,
    the precise kernel against its plain twin and the f32 dense kernel at
    1M x 4096 and 1M x 1000, its frames launch against 4 and 8 single-pose
@@ -86,14 +95,18 @@
 8. prints a kernels JSON line (per kernel its time, its plain version's,
    its bound from this run's inputs and which of bytes or operations binds
    it, library_ms null: no single PyTorch call computes an RBF or PU
-   field), the card line, and as its last line
+   field; the dense and culled kernels also their time alone, the culled
+   kernel the pairs it computed, counted on the card, over the pairs it
+   needs; the eval packing kernels beside them), the card line, and as
+   its last line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero.  Parts alone (no
-final record): --precise-bases times the precise kernel per basis and
---pu-jac the PU and Jacobian kernels at their main-path shapes, both
-through entry points a parent commit has too, so that a parent checkout
-(the script copied into it) is timed by the same code.
+final record): --precise-bases times the precise kernel per basis,
+--pu-jac the PU and Jacobian kernels and --eval the dense and culled eval
+kernels at their main-path shapes, each through entry points a parent
+commit has too, so that a parent checkout (the script
+copied into it) is timed by the same code.
 """
 
 from __future__ import annotations
@@ -220,13 +233,20 @@ def _synthetic_model(n, n_layers, kernel, rng, dev):
     )
 
 
+# Phase 3's dense/culled grid: every layer count the eval kernels
+# instantiate (1-4 at compile time, 6 through the run-time-L kernel) and a
+# control count that is not a multiple of their unroll (1003)
+EVAL_CHECK_N = (1000, 2500, 1003)
+EVAL_CHECK_L = (1, 2, 3, 4, 6)
+
+
 def check_kernels(dev) -> dict:
     """Phase 3: every kernel against its plain version; returns the worst
     deviations per kernel."""
     from facedeform_tpu_torch.config import PolyTerm, RBFKernel
     from facedeform_tpu_torch.geometry.primitives import uv_sphere
     from facedeform_tpu_torch.ops import cuda_eval
-    from facedeform_tpu_torch.ops.fit import GROWING_KERNELS
+    from facedeform_tpu_torch.ops.fit import GROWING_KERNELS, RBFModel
 
     rng = np.random.default_rng(0)
     pts_np = uv_sphere(250, 280).points * 1.05              # V = 70002, ragged
@@ -241,36 +261,44 @@ def check_kernels(dev) -> dict:
     rate = 1.5
     worst = {"dense": 0.0, "culled": 0.0}
     n_cases = 0
-    for n in (1000, 2500):
-        for n_layers in (1, 4):
+    for n in EVAL_CHECK_N:
+        for n_layers in EVAL_CHECK_L:
             for kernel in RBFKernel:
                 model = _synthetic_model(n, n_layers, kernel, rng, dev)
                 tol = POS_TOL_GROWING if kernel in GROWING_KERNELS else POS_TOL_DECAYING
-                routes = [("dense", cuda_eval.evaluate_cuda)]
+                # (route, term, model): a growing kernel with a ZERO tail runs
+                # the dense kernel without its centering pass
+                routes = [("dense", PolyTerm.LINEAR, model)]
+                if kernel in GROWING_KERNELS:
+                    routes.append(("dense", PolyTerm.ZERO, RBFModel(
+                        ctrl=model.ctrl, w_rbf=model.w_rbf, eps=model.eps,
+                        w_poly=model.w_poly[:0].contiguous())))
                 if cuda_eval.kernel_is_cullable(kernel):
-                    routes.append(("culled", cuda_eval.evaluate_cuda_culled))
-                group = {name: [0.0, 0.0] for name, _ in routes}
+                    routes.append(("culled", PolyTerm.LINEAR, model))
+                group = {}
                 for with_frame in (False, True):
                     for strict in (False, True):
-                        args = (model, pts, dist2, gate, radius, rate, kernel,
-                                PolyTerm.LINEAR)
                         kw = dict(strict_parity=strict,
                                   frame=frame if with_frame else None)
-                        want_p, want_w = cuda_eval.evaluate_reference(*args, **kw)
-                        for name, fn in routes:
+                        for name, term, m in routes:
+                            args = (m, pts, dist2, gate, radius, rate, kernel, term)
+                            want_p, want_w = cuda_eval.evaluate_reference(*args, **kw)
+                            fn = (cuda_eval.evaluate_cuda_culled if name == "culled"
+                                  else cuda_eval.evaluate_cuda)
                             got_p, got_w = fn(*args, **kw)
                             torch.cuda.synchronize()
                             dp = float(torch.max(torch.abs(got_p - want_p)))
                             dw = float(torch.max(torch.abs(got_w - want_w)))
                             _check(
                                 dp <= tol and dw <= FALLOFF_TOL,
-                                f"{name} {kernel.name} N={n} L={n_layers} "
+                                f"{name} {kernel.name} {term.name} N={n} L={n_layers} "
                                 f"frame={with_frame} strict={strict}: |dpos| {dp:.3e} "
                                 f"(tol {tol:g}), |dfalloff| {dw:.3e}",
                             )
                             if tol == POS_TOL_DECAYING:
                                 worst[name] = max(worst[name], dp)
-                            group[name] = [max(group[name][0], dp), max(group[name][1], dw)]
+                            g = group.setdefault(f"{name} {term.name}", [0.0, 0.0])
+                            group[f"{name} {term.name}"] = [max(g[0], dp), max(g[1], dw)]
                             n_cases += 1
                 print(f"  N={n} L={n_layers} {kernel.name:20s} " + ", ".join(
                     f"{name} max|dpos| {g[0]:.3e} (tol {tol:g}) max|dfalloff| "
@@ -280,6 +308,44 @@ def check_kernels(dev) -> dict:
           f"falloff {FALLOFF_TOL:g}); worst decaying |dpos| dense "
           f"{worst['dense']:.3e}, culled {worst['culled']:.3e}", flush=True)
     return worst
+
+
+def check_pack_kernels(dev) -> int:
+    """Phase 3a: the eval kernels' per-call packing on the card
+    (control_records: pack_kernel; culled_tables: morton_kernel, argsort,
+    cull_pack_kernel) equal to their plain twins bit for bit, and the
+    128-slab table to culled_slabs' (the JAX package's), at N in {100,
+    1000, 1003, 4096}, L in {1, 3, 6}, tails of 0, 1 and 4 rows; returns
+    the cases."""
+    from facedeform_tpu_torch.config import RBFKernel
+    from facedeform_tpu_torch.ops import cuda_eval
+    from facedeform_tpu_torch.ops.fit import RBFModel
+
+    rng = np.random.default_rng(3)
+    n_cases = 0
+    for n in (100, 1000, 1003, 4096):
+        for n_layers in (1, 3, 6):
+            for rows in (0, 1, 4):
+                for kernel in (RBFKernel.GAUSSIAN, RBFKernel.WENDLAND_C2):
+                    m = _synthetic_model(n, n_layers, kernel, rng, dev)
+                    m = RBFModel(ctrl=m.ctrl, w_rbf=m.w_rbf, eps=m.eps,
+                                 w_poly=m.w_poly[:rows].contiguous())
+                    got = cuda_eval.culled_tables(m, kernel)
+                    want = cuda_eval.culled_tables_reference(m, kernel)
+                    _check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                           f"culled_tables N={n} L={n_layers} rows={rows} {kernel.name}: "
+                           "the card's tables differ from the plain twin's")
+                    _check(torch.equal(got[1], cuda_eval.culled_slabs(m, kernel)[3]),
+                           "the slab table differs from culled_slabs'")
+                    n_cases += 1
+                got = cuda_eval.control_records(m)
+                want = cuda_eval.control_records_reference(m)
+                _check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                       f"control_records N={n} L={n_layers} rows={rows}: the card's records "
+                       "differ from the plain twin's")
+                n_cases += 1
+    print(f"packing checks: {n_cases} cases bit-equal to the plain twins", flush=True)
+    return n_cases
 
 
 def _frames_model(n, n_layers, n_frames, kernel, rng, dev):
@@ -493,8 +559,10 @@ def main_path(dev, label: str) -> dict:
     pts = torch.as_tensor(mesh.points, device=dev)
     cap_d2 = torch.sum((pts - torch.tensor([0.0, 1.0, 0.0], device=dev)) ** 2, -1)
 
-    cuda_eval.evaluate_cuda.launches = 0
-    cuda_eval.evaluate_cuda_culled.launches = 0
+    counters = (cuda_eval.evaluate_cuda, cuda_eval.evaluate_cuda_culled,
+                cuda_eval.control_records, cuda_eval.culled_tables)
+    for fn in counters:
+        fn.launches = 0
     t0 = time.perf_counter()
     d = Deformer.fit(rest, deformed, DeformConfig(), DeformParams(), device=dev)
     auto_pts, auto_w = d.apply(pts)
@@ -504,12 +572,14 @@ def main_path(dev, label: str) -> dict:
     gated_pts, gated_w = d.apply(pts, dist2=cap_d2, backend="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"dense": cuda_eval.evaluate_cuda.launches,
-                "culled": cuda_eval.evaluate_cuda_culled.launches}
+    launches = dict(zip(("dense", "culled", "records", "tables"),
+                        (fn.launches for fn in counters)))
     print(f"main path: {wall:.3f} s wall (2 fits, 4 applies at {pts.shape[0]} "
           f"verts); launches {launches}  [{label}]", flush=True)
     _check(launches["culled"] > 0, "apply('auto') did not launch the culled kernel")
     _check(launches["dense"] > 0, "apply(backend='cuda') did not launch the dense kernel")
+    _check(launches["records"] == launches["dense"] and launches["tables"] == launches["culled"],
+           "each eval launch must pack its controls on the card once")
 
     for name, rep in (("fit@1k", d.report), ("fit@4k localized", d_loc.report)):
         be = float(rep.backward_error())
@@ -711,9 +781,89 @@ def main_path_frames(dev, label: str) -> dict:
             "points": pts, "cfg": cfg, "params": params}
 
 
+def _kernel_alone_ms(fn, name: str, n: int = 20) -> float:
+    """Device ms a call of the kernels whose name holds `name`, from a
+    torch.profiler window over n calls of fn: the kernel alone, without the
+    wrapper's other launches (packing, slab tables)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(  # noqa: E731
+        e, "self_cuda_time_total", 0)
+    total = sum(dev_us(e) for e in prof.key_averages() if name in e.key)
+    _check(total > 0, f"the profiler saw no device time of {name}")
+    return total / n / 1e3
+
+
+def _boxes(x, size):
+    """lo, hi (ceil(n / size), 3) of consecutive groups of `size` rows of x."""
+    pad = -x.shape[0] % size
+    lo = torch.nn.functional.pad(x, (0, 0, 0, pad), value=float("inf"))
+    hi = torch.nn.functional.pad(x, (0, 0, 0, pad), value=float("-inf"))
+    return lo.reshape(-1, size, 3).amin(1), hi.reshape(-1, size, 3).amax(1)
+
+
+def _reach(lo_a, hi_a, lo_b, hi_b, cut2_b):
+    """(na, nb): box b within its cutoff^2 of box a (the kernels' gap test)."""
+    g = torch.clamp(torch.maximum(lo_b[None] - hi_a[:, None], lo_a[:, None] - hi_b[None]), min=0)
+    return (g * g).sum(-1) <= cut2_b[None]
+
+
+def _cull_pairs(pts, model, kernel) -> dict:
+    """(vertex, control) pairs of a culled evaluation on these inputs, all
+    vertices active: needed (within the control's cutoff), and, by a host
+    model of each skip rule, computed (vertex slots x control slots) by
+    the block rule of the JAX package's culled kernel (128-vertex blocks
+    against 128-control slabs) and by the two-level rule (blocks of 512
+    vertices against slabs, each warp of 128 against 32-control
+    sub-slabs; 256/64 and 128/32 at two and one vertices a thread).  The
+    tables come from culled_slabs, which a parent commit's package has
+    too, so the rules of a parent and a change are modelled alike; the
+    change's kernel also counts its pairs on the card (time_kernels)."""
+    from facedeform_tpu_torch.ops import cuda_eval
+
+    ctrl, _, inv_eps2, bbox = cuda_eval.culled_slabs(model, kernel)
+    n = model.ctrl.shape[0]
+    cut2 = cuda_eval._CULL_S_CUTOFF[kernel] / inv_eps2.amin(0)     # (NP,)
+    cut2[n:] = 0.0  # padding rows: zero weight, the tables' eps of 1e-6
+    needed = _pairs_within(pts, ctrl[:n], cut2[:n])
+    slo, shi, scut = bbox[:, :3], bbox[:, 3:6], bbox[:, 6]
+    blo, bhi = _boxes(pts, 128)
+    out = {"needed": needed,
+           "block rule 128/128": int(_reach(blo, bhi, slo, shi, scut).sum()) * 128 * 128}
+    sub_lo, sub_hi = _boxes(ctrl, 32)
+    sub_cut = cut2.reshape(-1, 32).amax(1)
+    for block_v, warp_v in ((512, 128), (256, 64), (128, 32)):
+        wlo, whi = _boxes(pts, warp_v)
+        per = block_v // warp_v
+        pad = -wlo.shape[0] % per
+        blo = torch.nn.functional.pad(wlo, (0, 0, 0, pad), value=float("inf"))
+        bhi = torch.nn.functional.pad(whi, (0, 0, 0, pad), value=float("-inf"))
+        slab_ok = _reach(blo.reshape(-1, per, 3).amin(1), bhi.reshape(-1, per, 3).amax(1),
+                         slo, shi, scut)                               # (blocks, NB)
+        slab_ok = slab_ok.repeat_interleave(per, 0)[: wlo.shape[0]].repeat_interleave(4, 1)
+        sub_ok = _reach(wlo, whi, sub_lo, sub_hi, sub_cut) & slab_ok   # (warps, 4 NB)
+        out[f"two-level {block_v}/{warp_v}/32"] = int(sub_ok.sum()) * warp_v * 32
+    return out
+
+
+def _print_pairs(name: str, pairs: dict, label: str) -> None:
+    need = pairs["needed"]
+    print(f"culled pairs at {name}: {need} needed; computed (host model) " + ", ".join(
+        f"{k} {v} ({v / need:.3f}x)" for k, v in pairs.items() if k != "needed")
+        + f"  [{label}]")
+
+
 def time_kernels(main: dict, label: str) -> list:
     """Phase 7a: each kernel and the plain version at the main path's
-    shapes (1M verts x 1k controls, all active)."""
+    shapes (1M verts x 1k controls, all active), the culled kernel also
+    alone (profiler) and the pairs it computes, counted on the card, over
+    the pairs it needs."""
     from facedeform_tpu_torch.benchmark import stats, time_cuda
     from facedeform_tpu_torch.config import PolyTerm, RBFKernel
     from facedeform_tpu_torch.ops import cuda_eval
@@ -727,34 +877,146 @@ def time_kernels(main: dict, label: str) -> list:
         "dense": lambda: cuda_eval.evaluate_cuda(*args),
         "culled": lambda: cuda_eval.evaluate_cuda_culled(*args),
         "plain": lambda: cuda_eval.evaluate_reference(*args),
+        "records": lambda: cuda_eval.control_records(model),
+        "records plain": lambda: cuda_eval.control_records_reference(model),
+        "tables": lambda: cuda_eval.culled_tables(model, RBFKernel.GAUSSIAN),
+        "tables plain": lambda: cuda_eval.culled_tables_reference(model, RBFKernel.GAUSSIAN),
     }
     times = {k: stats(t) for k, t in time_cuda(fns).items()}
     want, _ = cuda_eval.evaluate_reference(*args)
     errs = {k: float(torch.max(torch.abs(fns[k]()[0] - want))) for k in ("dense", "culled")}
+    for k in ("records", "tables"):
+        errs[k] = max(float(torch.max(torch.abs(g - w)))
+                      for g, w in zip(fns[k](), fns[k + " plain"]()))
     for k, (best, med, spread) in times.items():
         print(f"time {k}: {best:.4f} ms best, {med:.4f} median, spread "
               f"{spread * 100:.1f}% at {v} x {model.ctrl.shape[0]}  [{label}]")
+    alone = {k: _kernel_alone_ms(fns[k], f"{k}_kernel") for k in ("dense", "culled")}
+    print(f"time kernels alone (profiler, 20 calls): dense {alone['dense']:.4f} ms, culled "
+          f"{alone['culled']:.4f} ms  [{label}]")
     src = "facedeform_tpu_torch/csrc/eval.cu"
     n = model.ctrl.shape[0]
+    n_layers = model.eps.shape[0]
     # per pair: d2 8, s 1, exp(-s) 2, 3 FMAs 6; bytes: points, dist2, gate,
     # out, falloff (36 B/vertex), ctrl, w, inv_eps2 (28 B/control)
     n_bytes = 36 * v + 28 * n + 48
-    cut2 = (model.eps[0] ** 2) * 27.7          # phi <= 1e-12 beyond (culled)
-    culled_pairs = _pairs_within(pts, model.ctrl, cut2)
-    print(f"culled kernel at {v} x {n}: {culled_pairs} pairs within the cutoff "
-          f"({culled_pairs / (v * n) * 100:.1f}% of dense)")
+    pairs = _cull_pairs(pts, model, RBFKernel.GAUSSIAN)
+    _print_pairs(f"{v} x {n}", pairs, label)
+    geom = cuda_eval.cull_geometry()
+    rule = f"two-level {geom['block_verts']}/{geom['warp_verts']}/{geom['sub']}"
+    count = torch.zeros(1, dtype=torch.int64, device=pts.device)
+    cuda_eval.evaluate_cuda_culled(*args, pairs=count)
+    counted = int(count.item())
+    print(f"culled pairs at {v} x {n}: {counted} computed, counted on the card "
+          f"({counted / pairs['needed']:.3f}x the needed; the host model of its rule "
+          f"{rule}: {pairs[rule]})  [{label}]")
+    _check(pairs["needed"] <= counted, "the culled kernel computed fewer pairs than it needs")
+    # the packing moves bytes: the model in (ctrl, w, eps: 12 + 16 L B a
+    # control; the tail 48 B), the records (16 (1 + L) B a control, padded
+    # for the tables), the slab and sub-slab tables (160 B a slab) and the
+    # tail out; 3 operations a 1/eps^2
+    n_pad = -(-n // 128) * 128
+    rec_bytes = (12 + 16 * n_layers) * n + 48 + 16 * (1 + n_layers) * n + 48
+    tab_bytes = (12 + 16 * n_layers) * n + 48 + 16 * (1 + n_layers) * n_pad + 160 * (
+        n_pad // 128) + 48
     return [
         {"name": "eval_dense", "route": "cuda", "source": src,
          "replaces": "facedeform_tpu/ops/pallas_eval.py:349",
          "launches": main["launches"]["dense"], "max_abs_err": errs["dense"],
-         "ms": times["dense"][0], "plain_ms": times["plain"][0],
+         "ms": times["dense"][0], "kernel_alone_ms": alone["dense"],
+         "plain_ms": times["plain"][0],
          **_bound(n_bytes, (17 * v * n, PEAK_F32)), "library_ms": None},
         {"name": "eval_culled", "route": "cuda", "source": src,
          "replaces": "facedeform_tpu/ops/pallas_eval.py:868",
          "launches": main["launches"]["culled"], "max_abs_err": errs["culled"],
-         "ms": times["culled"][0], "plain_ms": times["plain"][0],
-         **_bound(n_bytes, (17 * culled_pairs, PEAK_F32)), "library_ms": None},
+         "ms": times["culled"][0], "kernel_alone_ms": alone["culled"],
+         "plain_ms": times["plain"][0],
+         "pairs_computed_over_needed": counted / pairs["needed"],
+         **_bound(n_bytes, (17 * pairs["needed"], PEAK_F32)), "library_ms": None},
+        # the per-call packing the JAX package leaves to XLA around its
+        # pallas_calls (inv_eps2 and the tail; the Morton sort, gathers,
+        # padding and slab table of the culled wrapper): no TPU kernel of
+        # their own, so `replaces` names the pallas_call they feed
+        {"name": "eval_records", "route": "cuda", "source": src,
+         "replaces": "facedeform_tpu/ops/pallas_eval.py:349", "part_of": "eval_dense",
+         "launches": main["launches"]["records"], "max_abs_err": errs["records"],
+         "ms": times["records"][0], "plain_ms": times["records plain"][0],
+         **_bound(rec_bytes, (3 * n_layers * n, PEAK_F32)), "library_ms": None},
+        {"name": "culled_tables", "route": "cuda", "source": src,
+         "replaces": "facedeform_tpu/ops/pallas_eval.py:868", "part_of": "eval_culled",
+         "launches": main["launches"]["tables"], "max_abs_err": errs["tables"],
+         "ms": times["tables"][0], "plain_ms": times["tables plain"][0],
+         **_bound(tab_bytes, (3 * n_layers * n_pad, PEAK_F32)), "library_ms": None},
     ]
+
+
+def time_eval(dev, label: str) -> dict:
+    """--eval, part alone: the dense kernel at 1M x 1k gaussian all active,
+    through the capture-gated apply (33.3% active) and as the custom-VJP
+    eval's forward at 65536 x 1k; the culled kernel through its wrapper and
+    alone (profiler) at 1M x 1k and through apply("auto") on the localized
+    4096-control rig, each beside its dense apply; one call of the culled
+    wrapper and of both applies under the profiler; computed / needed
+    pairs of the culling rules (host model).  Best of 5
+    interleaved rounds of 10 calls.  It calls only entry points the parent
+    commit has too, so run from a parent checkout it times the parent's
+    kernels by the same code.  Returns {name: (best, median, spread)}."""
+    from facedeform_tpu_torch import DeformConfig, DeformParams, Deformer
+    from facedeform_tpu_torch.benchmark import stats, time_cuda
+    from facedeform_tpu_torch.config import PolyTerm, RBFKernel
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points, uv_sphere
+    from facedeform_tpu_torch.ops import cuda_eval
+
+    rng = np.random.default_rng(0)  # main_path's rigs
+    rest = fibonacci_points(1000)
+    deformed = rest + 0.05 * rng.standard_normal((1000, 3)).astype(np.float32)
+    n_loc = 4096
+    cap = fibonacci_points(n_loc) * 0.15 + np.float32([0, 0.98, 0])
+    cap_def = cap + 0.01 * rng.standard_normal((n_loc, 3)).astype(np.float32)
+    pts = torch.as_tensor(uv_sphere(1000, 1000).points, device=dev)
+    v = pts.shape[0]
+    cap_d2 = torch.sum((pts - torch.tensor([0.0, 1.0, 0.0], device=dev)) ** 2, -1)
+    d = Deformer.fit(rest, deformed, DeformConfig(), DeformParams(), device=dev)
+    d_loc = Deformer.fit(cap, cap_def, DeformConfig(), DeformParams(), device=dev)
+    gauss, lin = RBFKernel.GAUSSIAN, PolyTerm.LINEAR
+    zeros, ones = torch.zeros(v, device=dev), torch.ones(v, device=dev)
+    args = (d.model, pts, zeros, ones, 1.0, 1.0, gauss, lin)
+    sub = pts[:65536].contiguous()
+    fns = {
+        "dense 1M x 1k": lambda: cuda_eval.evaluate_cuda(*args),
+        "apply cuda 1M x 1k": lambda: d.apply(pts, backend="cuda"),
+        "apply cuda gated": lambda: d.apply(pts, dist2=cap_d2, backend="cuda"),
+        "diff forward 65536 x 1k": lambda: cuda_eval.evaluate_cuda_diff(
+            d.model, sub, zeros[:65536], ones[:65536], 1.0, 1.0, None, gauss, lin),
+        "culled 1M x 1k": lambda: cuda_eval.evaluate_cuda_culled(*args),
+        "localized apply auto": lambda: d_loc.apply(pts),
+        "localized apply cuda": lambda: d_loc.apply(pts, backend="cuda"),
+    }
+    t = {k: stats(x) for k, x in time_cuda(fns, rounds=5, iters=10).items()}
+    alone = {"dense kernel alone 1M x 1k": _kernel_alone_ms(fns["dense 1M x 1k"], "dense_kernel"),
+             "culled kernel alone 1M x 1k": _kernel_alone_ms(fns["culled 1M x 1k"],
+                                                             "culled_kernel"),
+             "culled kernel alone localized": _kernel_alone_ms(fns["localized apply auto"],
+                                                               "culled_kernel")}
+    for k, x in t.items():
+        print(_fmt(k, x, f"  [{label}]"))
+    for k, x in alone.items():
+        print(f"time {k}: {x:.4f} ms (profiler, 20 calls)  [{label}]")
+    print(f"capture_gated_speedup {t['apply cuda 1M x 1k'][0] / t['apply cuda gated'][0]:.3f}x "
+          f"({float((cap_d2 <= 1.0).float().mean()) * 100:.1f}% active); "
+          f"localized_culled_speedup "
+          f"{t['localized apply cuda'][0] / t['localized apply auto'][0]:.3f}x  [{label}]")
+    for k in ("culled 1M x 1k", "apply cuda gated", "localized apply auto"):
+        _profile(fns[k], f"{k} (one call)", top=6)
+    _print_pairs(f"{v} x 1000", _cull_pairs(pts, d.model, gauss), label)
+    _print_pairs(f"{v} x {n_loc} (localized)", _cull_pairs(pts, d_loc.model, gauss), label)
+    want, _ = cuda_eval.evaluate_reference(*args)
+    for k in ("dense 1M x 1k", "culled 1M x 1k"):
+        e = float(torch.max(torch.abs(fns[k]()[0] - want)))
+        print(f"{k}: max |kernel - plain| {e:.3e} (tol {POS_TOL_DECAYING:g})")
+        _check(e <= POS_TOL_DECAYING, f"{k} disagrees with the plain version")
+    print(json.dumps({"eval": {k: list(x) for k, x in t.items()}, **alone, "device": label}))
+    return t
 
 
 def _fmt(name, t, extra=""):
@@ -2267,8 +2529,13 @@ def main() -> int:
         # the PU and Jacobian kernels' timing alone
         time_pu_jac(dev, label)
         return 0
+    if "--eval" in sys.argv[1:]:
+        # the dense and culled eval kernels' timing alone
+        time_eval(dev, label)
+        return 0
 
     check_kernels(dev)
+    check_pack_kernels(dev)
     check_frames_kernel(dev)
     check_jacobian_kernel(dev)
     check_precise_kernel(dev)

@@ -12,7 +12,11 @@ Counterpart of facedeform_tpu/ops/pallas_eval.py:
 
 A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; it never falls back.  Each
-wrapper counts its launches in its `launches` attribute.
+wrapper counts its launches in its `launches` attribute.  The dense and
+culled kernels read the controls as packed records, built once per call on
+the card (control_records, culled_tables; their plain twins
+control_records_reference, culled_tables_reference); the culled kernel
+also reads a bbox table per 128-control slab and per 32-control sub-slab.
 
 The kernels (these, csrc/jacobian.cu's in ops/cuda_jacobian.py,
 csrc/precise.cu's in ops/cuda_precise.py and csrc/pu.cu's in
@@ -46,13 +50,32 @@ _NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Control-slab size of the culled kernel (kCullBlock in csrc/eval.cu).
+# Control-slab size of the culled kernel and its sub-slab, the unit of a
+# warp's skip (kCullSlab, kCullSub in csrc/eval.cu; build() checks them
+# against the library's cull_geometry).
 _CULL_BLOCK = 128
+_CULL_SUB = 32
 
 # phi(s) <= 1e-12 beyond these squared-normalized-distance cutoffs.
 _CULL_S_CUTOFF = {
     RBFKernel.GAUSSIAN: 27.7,      # exp(-s) = 1e-12
     RBFKernel.WENDLAND_C2: 1.0,    # compact support (exact)
+}
+
+# The C entry points of csrc/*.cu, one letter an argument: p a pointer (or
+# the stream), i an int, f a float; each returns a cudaError_t as int.
+ABI = {
+    "fd_eval_dense": "p" * 10 + "i" * 6 + "ffp",
+    "fd_eval_culled": "p" * 13 + "i" * 5 + "ffp",
+    "fd_cull_geometry": "p",
+    "fd_pack_records": "p" * 6 + "iiip",
+    "fd_morton": "ppip",
+    "fd_cull_pack": "p" * 9 + "i" * 4 + "fp",
+    "fd_eval_frames": "p" * 12 + "i" * 9 + "ffp",
+    "fd_jacobian": "p" * 3 + "i" * 8 + "p",
+    "fd_eval_precise": "p" * 13 + "i" * 8 + "ffp",
+    "fd_log_probe": "p" * 3 + "ip",
+    "fd_pu_tiles": "p" * 10 + "i" * 9 + "p",
 }
 
 _lib = None
@@ -117,23 +140,28 @@ def build() -> str:
             raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
         os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     lib = ctypes.CDLL(str(so))
-    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fd_eval_dense.argtypes = [ptr] * 12 + [i32] * 6 + [f32, f32, ptr]
-    lib.fd_eval_dense.restype = i32
-    lib.fd_eval_culled.argtypes = [ptr] * 13 + [i32] * 5 + [f32, f32, ptr]
-    lib.fd_eval_culled.restype = i32
-    lib.fd_eval_frames.argtypes = [ptr] * 12 + [i32] * 9 + [f32, f32, ptr]
-    lib.fd_eval_frames.restype = i32
-    lib.fd_jacobian.argtypes = [ptr] * 3 + [i32] * 8 + [ptr]
-    lib.fd_jacobian.restype = i32
-    lib.fd_eval_precise.argtypes = [ptr] * 13 + [i32] * 8 + [f32, f32, ptr]
-    lib.fd_eval_precise.restype = i32
-    lib.fd_log_probe.argtypes = [ptr] * 3 + [i32, ptr]
-    lib.fd_log_probe.restype = i32
-    lib.fd_pu_tiles.argtypes = [ptr] * 10 + [i32] * 9 + [ptr]
-    lib.fd_pu_tiles.restype = i32
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+    for name, sig in ABI.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [kinds[k] for k in sig]
+        fn.restype = ctypes.c_int
     _lib = lib
+    geom = cull_geometry()
+    if (geom["slab"], geom["sub"]) != (_CULL_BLOCK, _CULL_SUB):
+        _lib = None
+        raise RuntimeError(f"csrc/eval.cu culls by {geom}, this module by "
+                           f"{_CULL_BLOCK}-control slabs of {_CULL_SUB}-control sub-slabs")
     return log
+
+
+def cull_geometry() -> dict:
+    """The built culled kernel's geometry: vertices a block and a warp
+    (block_verts, warp_verts), controls a slab and a sub-slab (slab,
+    sub).  Builds the library if needed."""
+    build()
+    geom = (ctypes.c_int * 4)()
+    _lib.fd_cull_geometry(ctypes.addressof(geom))
+    return dict(zip(("block_verts", "warp_verts", "slab", "sub"), geom))
 
 
 def evaluate_reference(
@@ -216,6 +244,59 @@ def _frame_ptrs(frame):
     return [None] * 3 if frame is None else [f.data_ptr() for f in frame]
 
 
+def pack_records(ctrl: torch.Tensor, w_rbf: torch.Tensor, inv_eps2: torch.Tensor) -> torch.Tensor:
+    """(N, 3) controls, (L, N, 3) weights and (L, N) 1/eps^2 -> the
+    (N, 1 + L, 4) control records the dense and culled kernels stage:
+    (x, y, z, 1/eps_0^2), then per layer l (w_l.xyz, 1/eps_{l+1}^2), the
+    last layer's fourth word 0.  A pair then reads two 16-byte records a
+    layer."""
+    n_layers, n = inv_eps2.shape
+    rec = torch.empty((n, 1 + n_layers, 4), dtype=torch.float32, device=ctrl.device)
+    rec[:, 0, :3] = ctrl
+    rec[:, 0, 3] = inv_eps2[0]
+    rec[:, 1:, :3] = w_rbf.transpose(0, 1)
+    rec[:, 1:, 3] = torch.nn.functional.pad(inv_eps2[1:], (0, 0, 0, 1)).T
+    return rec
+
+
+def control_records_reference(model):
+    """Plain twin of control_records: (records (N, 1 + L, 4), w_poly (4, 3))."""
+    return pack_records(model.ctrl, model.w_rbf, _inv_eps2(model.eps)), _w_poly4(model)
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def control_records(model):
+    """The dense kernel's control inputs, (records (N, 1 + L, 4), w_poly
+    (4, 3)) as pack_records lays them out and _w_poly4 pads the tail: on
+    CUDA one launch of csrc/eval.cu's pack_kernel, on the CPU the plain
+    twin.  The model's tensors must pass _check_inputs."""
+    if model.ctrl.device.type == "cpu":
+        return control_records_reference(model)
+    build()
+    n_layers, n = model.eps.shape
+    dev = model.ctrl.device
+    buf = torch.empty(n * (1 + n_layers) * 4 + 12, dtype=torch.float32, device=dev)
+    rec, wp = buf[:-12].view(n, 1 + n_layers, 4), buf[-12:].view(4, 3)
+    with torch.cuda.device(dev):
+        _raise_on(_lib.fd_pack_records(
+            model.ctrl.data_ptr(), model.w_rbf.data_ptr(), model.eps.data_ptr(),
+            model.w_poly.data_ptr(), rec.data_ptr(), wp.data_ptr(), model.w_poly.shape[0],
+            n, n_layers, _stream(dev)), "fd_pack_records")
+    control_records.launches += 1
+    return rec, wp
+
+
+control_records.launches = 0
+
+
 def evaluate_cuda(
     model, points, dist2, gate, radius, falloffrate,
     kernel: RBFKernel, term: PolyTerm, strict_parity: bool = False, frame=None,
@@ -239,21 +320,14 @@ def evaluate_cuda(
     falloff = torch.empty_like(dist2)
     if v == 0:
         return out, falloff
-    build()
-    inv_eps2 = _inv_eps2(model.eps)
-    w_poly = _w_poly4(model)
+    rec, w_poly = control_records(model)
     with torch.cuda.device(points.device):
-        err = _lib.fd_eval_dense(
-            points.data_ptr(), dist2.data_ptr(), gate.data_ptr(),
-            model.ctrl.data_ptr(), model.w_rbf.data_ptr(), inv_eps2.data_ptr(),
+        _raise_on(_lib.fd_eval_dense(
+            points.data_ptr(), dist2.data_ptr(), gate.data_ptr(), rec.data_ptr(),
             w_poly.data_ptr(), *_frame_ptrs(frame), out.data_ptr(),
             falloff.data_ptr(), v, n, model.w_rbf.shape[0], int(kernel),
             int(strict_parity), int(_center_phi(kernel, term)),
-            _r2(radius), float(falloffrate),
-            torch.cuda.current_stream(points.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fd_eval_dense launch failed: CUDA error {err}")
+            _r2(radius), float(falloffrate), _stream(points.device)), "fd_eval_dense")
     evaluate_cuda.launches += 1
     return out, falloff
 
@@ -324,13 +398,12 @@ def evaluate_cuda_diff(
 evaluate_cuda_diff.launches = 0
 
 
-def culled_slabs(model, kernel: RBFKernel):
-    """Controls Morton-sorted and padded to whole 128-row slabs, with the
-    per-slab bbox table: (ctrl (NP, 3), w_rbf (L, NP, 3), inv_eps2 (L, NP),
-    bbox (NB, 8) = lo.xyz, hi.xyz, cutoff^2, 0).  Padding rows repeat the
-    last control (tight bboxes) with zero weight; the cutoff^2 is
-    max eps^2 over the slab and layers times the kernel's s cutoff."""
-    n_layers, n = model.eps.shape
+def _sorted_controls(model):
+    """Controls Morton-sorted and padded to whole 128-row slabs, as the JAX
+    package sorts them: (ctrl (NP, 3), w_rbf (L, NP, 3), inv_eps2 (L, NP),
+    eps (L, NP)).  Padding rows repeat the last control (tight bboxes) with
+    zero weight, 1/eps^2 = 1 and eps = 1e-6."""
+    n = model.ctrl.shape[0]
     order = torch.argsort(morton_codes(model.ctrl), stable=True)
     ctrl = model.ctrl[order]
     w_rbf = model.w_rbf[:, order]
@@ -342,27 +415,98 @@ def culled_slabs(model, kernel: RBFKernel):
         w_rbf = torch.nn.functional.pad(w_rbf, (0, 0, 0, n_pad))
         inv_eps2 = torch.nn.functional.pad(inv_eps2, (0, n_pad), value=1.0)
         eps = torch.nn.functional.pad(eps, (0, n_pad), value=1e-6)
-    nb = ctrl.shape[0] // _CULL_BLOCK
-    slab = ctrl.reshape(nb, _CULL_BLOCK, 3)
-    eps_slab = torch.amax(eps.reshape(n_layers, nb, _CULL_BLOCK), dim=(0, 2))
+    return ctrl, w_rbf, inv_eps2, eps
+
+
+def _slab_boxes(ctrl, eps, size: int, kernel: RBFKernel) -> torch.Tensor:
+    """(NP / size, 8) per slab of `size` sorted controls: lo.xyz, hi.xyz,
+    cutoff^2, 0; the cutoff^2 is max eps^2 over the slab and layers times
+    the kernel's s cutoff."""
+    n_layers = eps.shape[0]
+    nb = ctrl.shape[0] // size
+    slab = ctrl.reshape(nb, size, 3)
+    eps_slab = torch.amax(eps.reshape(n_layers, nb, size), dim=(0, 2))
     cutoff2 = (eps_slab * eps_slab) * _CULL_S_CUTOFF[RBFKernel(kernel)]
-    bbox = torch.cat([
+    return torch.cat([
         slab.amin(dim=1), slab.amax(dim=1), cutoff2[:, None],
         torch.zeros((nb, 1), dtype=ctrl.dtype, device=ctrl.device),
     ], dim=1)
-    return ctrl.contiguous(), w_rbf.contiguous(), inv_eps2.contiguous(), bbox
+
+
+def culled_slabs(model, kernel: RBFKernel):
+    """Controls Morton-sorted and padded to whole 128-row slabs, with the
+    per-slab bbox table, as pallas_eval builds them: (ctrl (NP, 3), w_rbf
+    (L, NP, 3), inv_eps2 (L, NP), bbox (NB, 8) = lo.xyz, hi.xyz,
+    cutoff^2, 0).  Padding rows repeat the last control (tight bboxes) with
+    zero weight; the cutoff^2 is max eps^2 over the slab and layers times
+    the kernel's s cutoff."""
+    ctrl, w_rbf, inv_eps2, eps = _sorted_controls(model)
+    return (ctrl.contiguous(), w_rbf.contiguous(), inv_eps2.contiguous(),
+            _slab_boxes(ctrl, eps, _CULL_BLOCK, kernel))
+
+
+def culled_tables_reference(model, kernel: RBFKernel):
+    """Plain twin of culled_tables: (records (NP, 1 + L, 4) of the sorted,
+    padded controls (pack_records), bbox (NB, 8) per 128-control slab,
+    equal to culled_slabs', sub (4 NB, 8) per 32-control sub-slab, the same
+    columns, w_poly (4, 3))."""
+    ctrl, w_rbf, inv_eps2, eps = _sorted_controls(model)
+    return (pack_records(ctrl, w_rbf, inv_eps2), _slab_boxes(ctrl, eps, _CULL_BLOCK, kernel),
+            _slab_boxes(ctrl, eps, _CULL_SUB, kernel), _w_poly4(model))
+
+
+def culled_tables(model, kernel: RBFKernel):
+    """What the culled kernel reads, built once per call: on CUDA
+    csrc/eval.cu's morton_kernel, a stable argsort of its codes and
+    cull_pack_kernel (gathers, padding, records and both bbox tables in
+    one launch), equal to culled_tables_reference bit for bit; on the CPU
+    that twin."""
+    if model.ctrl.device.type == "cpu":
+        return culled_tables_reference(model, kernel)
+    build()
+    n_layers, n = model.eps.shape
+    nb = -(-n // _CULL_BLOCK)
+    n_rec = nb * _CULL_BLOCK * (1 + n_layers) * 4
+    dev = model.ctrl.device
+    codes = torch.empty(n, dtype=torch.int64, device=dev)
+    buf = torch.empty(n_rec + 40 * nb + 12, dtype=torch.float32, device=dev)
+    rec = buf[:n_rec].view(nb * _CULL_BLOCK, 1 + n_layers, 4)
+    bbox = buf[n_rec:n_rec + 8 * nb].view(nb, 8)
+    sub = buf[n_rec + 8 * nb:n_rec + 40 * nb].view(4 * nb, 8)
+    wp = buf[n_rec + 40 * nb:].view(4, 3)
+    with torch.cuda.device(dev):
+        stream = _stream(dev)
+        _raise_on(_lib.fd_morton(model.ctrl.data_ptr(), codes.data_ptr(), n, stream),
+                  "fd_morton")
+        order = torch.argsort(codes, stable=True)
+        _raise_on(_lib.fd_cull_pack(
+            model.ctrl.data_ptr(), model.w_rbf.data_ptr(), model.eps.data_ptr(),
+            model.w_poly.data_ptr(), order.data_ptr(), rec.data_ptr(), bbox.data_ptr(),
+            sub.data_ptr(), wp.data_ptr(), model.w_poly.shape[0], n, n_layers, nb,
+            _CULL_S_CUTOFF[RBFKernel(kernel)], stream), "fd_cull_pack")
+    culled_tables.launches += 1
+    return rec, bbox, sub, wp
+
+
+culled_tables.launches = 0
 
 
 def evaluate_cuda_culled(
     model, points, dist2, gate, radius, falloffrate,
     kernel: RBFKernel, term: PolyTerm, strict_parity: bool = False, frame=None,
+    pairs=None,
 ):
     """Culled fused eval for decaying kernels (gaussian, Wendland).
 
-    Matches evaluate_cuda to within the phi <= 1e-12 truncation.  Vertex
-    blocks skip control slabs whose bbox gap exceeds the cutoff, so points
-    in a spatially coherent order (mesh order, or ops.morton.spatial_order)
-    cull best; any order stays correct."""
+    Matches evaluate_cuda to within the phi <= 1e-12 truncation.  A block
+    of consecutive vertices stages only the 128-control slabs its bbox
+    reaches within the cutoff, and each warp of it skips the 32-control
+    sub-slabs its own active vertices' bbox does not reach (the sizes:
+    cull_geometry), so points in a spatially coherent order (mesh order,
+    or ops.morton.spatial_order) cull best; any order stays correct.
+    pairs: None, or a (1,) int64 tensor on the points' device to which the
+    kernel adds the (vertex slot, control) pairs it computes (a
+    measurement; the CPU twin leaves it as it is)."""
     if not kernel_is_cullable(kernel):
         raise ValueError(
             f"culled eval needs a decaying kernel, got {RBFKernel(kernel).name}"
@@ -380,26 +524,28 @@ def evaluate_cuda_culled(
     falloff = torch.empty_like(dist2)
     if v == 0:
         return out, falloff
-    build()
-    ctrl, w_rbf, inv_eps2, bbox = culled_slabs(model, kernel)
-    w_poly = _w_poly4(model)
+    rec, bbox, sub, w_poly = culled_tables(model, kernel)
     with torch.cuda.device(points.device):
-        err = _lib.fd_eval_culled(
-            points.data_ptr(), dist2.data_ptr(), gate.data_ptr(),
-            ctrl.data_ptr(), w_rbf.data_ptr(), inv_eps2.data_ptr(),
-            w_poly.data_ptr(), *_frame_ptrs(frame), bbox.data_ptr(),
-            out.data_ptr(), falloff.data_ptr(), v, bbox.shape[0],
+        _raise_on(_lib.fd_eval_culled(
+            points.data_ptr(), dist2.data_ptr(), gate.data_ptr(), rec.data_ptr(),
+            w_poly.data_ptr(), *_frame_ptrs(frame), bbox.data_ptr(), sub.data_ptr(),
+            out.data_ptr(), falloff.data_ptr(), _pairs_ptr(pairs, points.device), v,
+            bbox.shape[0],
             model.w_rbf.shape[0], int(RBFKernel(kernel)), int(strict_parity),
-            _r2(radius), float(falloffrate),
-            torch.cuda.current_stream(points.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"fd_eval_culled launch failed: CUDA error {err}")
+            _r2(radius), float(falloffrate), _stream(points.device)), "fd_eval_culled")
     evaluate_cuda_culled.launches += 1
     return out, falloff
 
 
 evaluate_cuda_culled.launches = 0
+
+
+def _pairs_ptr(pairs, dev):
+    if pairs is None:
+        return None
+    if pairs.dtype != torch.int64 or tuple(pairs.shape) != (1,) or pairs.device != dev:
+        raise ValueError(f"pairs must be a (1,) int64 tensor on {dev}")
+    return pairs.data_ptr()
 
 
 # Frames per launch of the frames kernel (kMaxFrames in csrc/frames.cu):
