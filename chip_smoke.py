@@ -20,8 +20,12 @@
      culled_tables) bit-equal to the plain twins and the slab table to the
      JAX package's, N in {100, 1000, 1003, 4096}, L in {1, 3, 6}, tails of
      0, 1 and 4 rows;
-   - frames eval: F in {1, 8, 11, 17} (17 crosses the 16-frame launch
-     chunk), a 33%-active folded weight;
+   - frames eval: F in {1, 2, 3, 8, 9, 11, 16, 17, 19, 32, 33} (every n8
+     tile count the kernel instantiates; 33 = two balanced launches of 17
+     and 16) at N in {1000, 2500, 1003} and L in {1, 4}, a 33%-active
+     folded weight, every frame of every launch bit-equal to the same frame
+     of the 33-frame shot, and its packing kernel (frames_stream) bit-equal
+     to the plain twin;
    - Jacobian: single entry and F in {2, 3, 4, 8, 9} (every frames block
      NT in {1, 2, 3}; 9 crosses the 8-frame launch chunk) at N in
      {1000, 2500, 1003}, every frame of the F = 8 launch against its
@@ -82,8 +86,9 @@
    its single-pose kernel run, the shot against the twin;
 7. times fit, each kernel and its plain version (the dense and culled
    kernels also alone, by the profiler, and the culled kernel's computed
-   against needed pairs), the frames kernel against
-   8 dense launches, F = 8/11/16/17/32 per frame, both fit_frames routes,
+   against needed pairs), the frames kernel (also alone, by the profiler,
+   and its packing kernel against its twin) against 8 dense launches,
+   apply_frames at F = 8/11/16/17/32/33 per frame, both fit_frames routes,
    the precise kernel against its plain twin and the f32 dense kernel at
    1M x 4096 and 1M x 1000, its frames launch against 4 and 8 single-pose
    launches at 1M x 4096 in the same rounds, its single-pose launch per
@@ -97,16 +102,19 @@
    it, library_ms null: no single PyTorch call computes an RBF or PU
    field; the dense and culled kernels also their time alone, the culled
    kernel the pairs it computed, counted on the card, over the pairs it
-   needs; the eval packing kernels beside them), the card line, and as
-   its last line
+   needs; the frames kernel its time alone, the larger of its tensor-core
+   and CUDA-core bounds and the scalar kernel's CUDA-core formula; the eval
+   and frames packing kernels beside them), the card line, and as its last
+   line
    {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero.  Parts alone (no
 final record): --precise-bases times the precise kernel per basis,
---pu-jac the PU and Jacobian kernels and --eval the dense and culled eval
-kernels at their main-path shapes, each through entry points a parent
-commit has too, so that a parent checkout (the script
-copied into it) is timed by the same code.
+--pu-jac the PU and Jacobian kernels, --eval the dense and culled eval
+kernels and --frames the frames eval kernel (1M x 1k x 8 and F = 1, 2, 16,
+17, 32; apply_frames per frame at F = 8 to 33) at their main-path shapes,
+each through entry points a parent commit has too, so that a parent
+checkout (the script copied into it) is timed by the same code.
 """
 
 from __future__ import annotations
@@ -373,10 +381,21 @@ def _ragged_points(dev, rng):
     return torch.as_tensor(pts_np, device=dev), frame
 
 
+# Frame counts of a shot timed through apply_frames (phase 7, --frames):
+# one launch up to 32 frames, 33 = 17 + 16
+FRAMES_TIMED_F = (8, 11, 16, 17, 32, 33)
+# Phase 3b's frames grid: every n8 tile count of the frames kernel (1 for
+# F = 1 and 2, 2 (3), 3 (8), 4 (9), 6 (11, 16), 7 (17), 8 (19), 12 (32))
+# and a shot of two balanced launches (33 = 17 + 16)
+FRAMES_CHECK_F = (1, 2, 3, 8, 9, 11, 16, 17, 19, 32, 33)
+
+
 def check_frames_kernel(dev) -> float:
     """Phase 3b: the frames eval kernel against its plain twin on a 33%-
     active folded weight (apply_frames' call: dist2 = 0, radius = rate = 1,
-    gate = the weight); returns the worst decaying |dpos|."""
+    gate = the weight), every frame of every launch bit-equal to the same
+    frame of the 33-frame shot, and the packing kernel bit-equal to its
+    plain twin; returns the worst decaying |dpos|."""
     from facedeform_tpu_torch.config import PolyTerm, RBFKernel
     from facedeform_tpu_torch.ops import cuda_eval
     from facedeform_tpu_torch.ops.falloff import falloff_weight
@@ -389,19 +408,22 @@ def check_frames_kernel(dev) -> float:
     fold, _ = falloff_weight(d2_cap, radius, 1.5)
     fold = (fold * (pts[:, 0] > -0.6).float()).contiguous()       # x a group gate
     zeros = torch.zeros_like(fold)
-    worst, n_cases = 0.0, 0
-    for n in (1000, 2500):
+    n_shot = max(FRAMES_CHECK_F)
+    worst, n_cases, n_packs = 0.0, 0, 0
+    for n in EVAL_CHECK_N:
         for n_layers in (1, 4):
             for kernel in RBFKernel:
-                full = _frames_model(n, n_layers, 17, kernel, rng, dev)
+                full = _frames_model(n, n_layers, n_shot, kernel, rng, dev)
                 tol = POS_TOL_GROWING if kernel in GROWING_KERNELS else POS_TOL_DECAYING
                 group = [0.0, 0.0]
                 for with_frame in (False, True):
                     fr = frame if with_frame else None
-                    # the twin is per frame: compute it once for 17 frames
+                    # the twin is per frame: compute it once for the whole shot
                     want_p, want_w = cuda_eval.evaluate_frames_reference(
                         full, pts, zeros, fold, 1.0, 1.0, kernel, PolyTerm.LINEAR, frame=fr)
-                    for n_frames in (1, 8, 11, 17):
+                    shot, _ = cuda_eval.evaluate_cuda_frames(
+                        full, pts, zeros, fold, 1.0, 1.0, kernel, PolyTerm.LINEAR, frame=fr)
+                    for n_frames in FRAMES_CHECK_F:
                         model = RBFModel(ctrl=full.ctrl, w_rbf=full.w_rbf[:n_frames],
                                          w_poly=full.w_poly[:n_frames], eps=full.eps)
                         got_p, got_w = cuda_eval.evaluate_cuda_frames(
@@ -419,6 +441,19 @@ def check_frames_kernel(dev) -> float:
                             f"|dfalloff| {dw:.3e}, falloff == folded weight "
                             f"{bool(torch.equal(got_w, fold))}",
                         )
+                        for f0, nf, nt in cuda_eval.frames_launch_plan(n_frames):
+                            part = slice(f0, f0 + nf)
+                            _check(bool(torch.equal(got_p[part], shot[part])),
+                                   f"frames {kernel.name} N={n} L={n_layers} F={n_frames} "
+                                   f"frame={with_frame}: frames {f0}..{f0 + nf - 1} differ "
+                                   f"from the {n_shot}-frame shot's")
+                            if kernel == RBFKernel.GAUSSIAN and not with_frame:
+                                got_s = cuda_eval.frames_stream(model, f0, nf, nt)
+                                want_s = cuda_eval.frames_stream_reference(model, f0, nf, nt)
+                                _check(all(torch.equal(a, b) for a, b in zip(got_s, want_s)),
+                                       f"frames packing N={n} L={n_layers} launch "
+                                       f"({f0}, {nf}, {nt}) differs from its plain twin")
+                                n_packs += 1
                         if tol == POS_TOL_DECAYING:
                             worst = max(worst, dp)
                         group = [max(group[0], dp), max(group[1], dw)]
@@ -427,7 +462,10 @@ def check_frames_kernel(dev) -> float:
                       f"{group[0]:.3e} (tol {tol:g}) max|dfalloff| {group[1]:.3e}",
                       flush=True)
     print(f"frames kernel checks: {n_cases} cases within tolerance, falloff equal to "
-          f"the folded weight; worst decaying |dpos| {worst:.3e}", flush=True)
+          f"the folded weight, every launch's frames bit-equal to the {n_shot}-frame "
+          f"shot's; {n_packs} packing launches bit-equal to the plain twin; worst "
+          f"decaying |dpos| "
+          f"{worst:.3e}", flush=True)
     return worst
 
 
@@ -678,8 +716,8 @@ def main_path_frames(dev, label: str) -> dict:
     gate = torch.ones(v, device=dev)
     frame = _sphere_frame(pts)
 
-    counters = (cuda_eval.evaluate_cuda_frames, cuda_jacobian.jacobian_cuda,
-                cuda_jacobian.jacobian_cuda_frames)
+    counters = (cuda_eval.evaluate_cuda_frames, cuda_eval.frames_stream,
+                cuda_jacobian.jacobian_cuda, cuda_jacobian.jacobian_cuda_frames)
     for fn in counters:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -697,6 +735,8 @@ def main_path_frames(dev, label: str) -> dict:
           f"{n_ctrl} controls, apply_frames + transport_frames at {v} verts, "
           f"Deformer.jacobian); launches {launches}  [{label}]", flush=True)
     _check(launches["evaluate_cuda_frames"] > 0, "apply_frames did not launch the frames kernel")
+    _check(launches["frames_stream"] == launches["evaluate_cuda_frames"],
+           "apply_frames did not pack each frames launch on the card")
     _check(launches["jacobian_cuda_frames"] > 0,
            "transport_frames did not launch the Jacobian kernel")
     _check(launches["jacobian_cuda"] > 0, "Deformer.jacobian did not launch the Jacobian kernel")
@@ -1026,9 +1066,10 @@ def _fmt(name, t, extra=""):
 
 def time_frames(main_b: dict, label: str) -> list:
     """Phase 7b: the frames and Jacobian kernels against their plain twins
-    at the slice B main path's shapes (1M verts x 1k controls), F = 8, 11,
-    16, 17, 32 per frame through apply_frames, and both fit_frames routes at
-    (1k controls, F = 8) and (4k, F = 32)."""
+    at the slice B main path's shapes (1M verts x 1k controls; the frames
+    kernel also alone, by the profiler, and its packing kernel against its
+    twin), F = 8, 11, 16, 17, 32, 33 per frame through apply_frames, and
+    both fit_frames routes at (1k controls, F = 8) and (4k, F = 32)."""
     from facedeform_tpu_torch.benchmark import stats, time_cuda
     from facedeform_tpu_torch.geometry.primitives import fibonacci_points
     from facedeform_tpu_torch.ops import cuda_eval, cuda_jacobian
@@ -1049,25 +1090,37 @@ def time_frames(main_b: dict, label: str) -> list:
         "frames": lambda: cuda_eval.evaluate_cuda_frames(*args),
         "dense x8": lambda: [cuda_eval.evaluate_cuda(m, *args[1:]) for m in singles],
         "frames plain": lambda: cuda_eval.evaluate_frames_reference(*args),
+        "packing": lambda: cuda_eval.frames_stream(model, *cuda_eval.frames_launch_plan(
+            n_frames)[0]),
+        "packing plain": lambda: cuda_eval.frames_stream_reference(
+            model, *cuda_eval.frames_launch_plan(n_frames)[0]),
     }
     t = {k: stats(x) for k, x in time_cuda(fns, iters={
-        "frames": 10, "dense x8": 10, "frames plain": 2}).items()}
+        "frames": 10, "dense x8": 10, "frames plain": 2, "packing": 10,
+        "packing plain": 10}).items()}
     want, _ = cuda_eval.evaluate_frames_reference(*args)
     err_frames = float(torch.max(torch.abs(fns["frames"]()[0] - want)))
+    err_pack = max(float(torch.max(torch.abs(g - w)))
+                   for g, w in zip(fns["packing"](), fns["packing plain"]()))
+    alone = _kernel_alone_ms(fns["frames"], "frames_kernel")
     for k, x in t.items():
         print(_fmt(k, x, f" at {v} x {model.ctrl.shape[0]} x {n_frames} frames  [{label}]"))
+    print(f"time frames kernel alone (profiler, 20 calls): {alone:.4f} ms  [{label}]")
     print(f"frames kernel vs 8 dense launches: {t['dense x8'][0] / t['frames'][0]:.3f}x; "
           f"vs plain twin {t['frames plain'][0] / t['frames'][0]:.2f}x; max |d| vs twin "
-          f"{err_frames:.3e}")
+          f"{err_frames:.3e}; packing max |d| vs twin {err_pack:.3e}")
+    _check(err_frames <= (POS_TOL_GROWING if kernel in GROWING_KERNELS else POS_TOL_DECAYING),
+           "the frames kernel disagrees with its plain twin at the main path's shape")
+    _check(err_pack == 0.0, "the frames packing kernel differs from its plain twin")
 
-    # F = 8, 11, 16, 17, 32 through apply_frames: a cliff at the 16-frame chunk?
+    # F = 8, 11, 16, 17, 32, 33 through apply_frames: the balanced launches
     rng = np.random.default_rng(3)
     rest = main_b["rest"]
-    more = rest + 0.05 * rng.standard_normal((32,) + rest.shape).astype(np.float32)
-    model32, _ = batched.fit_frames(rest, more, cfg, params, device=dev)
-    for nf in (8, 11, 16, 17, 32):
-        sub = RBFModel(ctrl=model32.ctrl, w_rbf=model32.w_rbf[:nf],
-                       w_poly=model32.w_poly[:nf], eps=model32.eps)
+    more = rest + 0.05 * rng.standard_normal((33,) + rest.shape).astype(np.float32)
+    model33, _ = batched.fit_frames(rest, more, cfg, params, device=dev)
+    for nf in FRAMES_TIMED_F:
+        sub = RBFModel(ctrl=model33.ctrl, w_rbf=model33.w_rbf[:nf],
+                       w_poly=model33.w_poly[:nf], eps=model33.eps)
         ms = stats(time_cuda({"apply": lambda: batched.apply_frames(
             sub, pts, d2, gate, cfg, params)}, iters=5)["apply"])
         print(_fmt(f"apply_frames F={nf}", ms,
@@ -1136,16 +1189,31 @@ def time_frames(main_b: dict, label: str) -> list:
 
     n = model.ctrl.shape[0]
     f = n_frames
+    bound, old = _frames_bound(f, v, n), _frames_bound(f, v, n, tensor_cores=False)
+    print(f"frames kernel at {v} x {n} x {f}: bound {bound['bound_ms']:.4f} ms by "
+          f"{bound['bound_by']} ({bound['bound_ms'] / alone * 100:.1f}% of the kernel alone; "
+          f"CUDA-core formula {old['bound_ms']:.4f} ms, {old['bound_ms'] / alone * 100:.1f}%)"
+          f"  [{label}]")
+    nt = cuda_eval.frames_launch_plan(f)[0][2]
+    pack_bytes = 16 * n + 12 * f * n + 48 * f + 4 * (
+        -(-n // 8) * cuda_eval.frames_step_floats(nt, 1) + 32 * nt)
     return [
-        # per pair: d2 8, s 1, exp(-s) 2, 3F FMAs; bytes: points, dist2, gate,
-        # falloff, (F, V, 3) out; ctrl, inv_eps2, (N, 3F) weights, tails
         {"name": "eval_frames", "route": "cuda",
          "source": "facedeform_tpu_torch/csrc/frames.cu",
          "replaces": "facedeform_tpu/ops/pallas_eval.py:616",
          "launches": main_b["launches"]["evaluate_cuda_frames"], "max_abs_err": err_frames,
-         "ms": t["frames"][0], "plain_ms": t["frames plain"][0],
-         **_bound(24 * v + 12 * f * v + 16 * n + 12 * f * n + 48 * f,
-                  ((11 + 6 * f) * v * n, PEAK_F32)), "library_ms": None},
+         "ms": t["frames"][0], "kernel_alone_ms": alone, "plain_ms": t["frames plain"][0],
+         **bound, "library_ms": None},
+        # the launch's operands, packed on the card (the JAX package leaves
+        # the frames packing to XLA around its pallas_call): the model in,
+        # the stream and tails out; 3 operations a 1/eps^2, 4 a split word
+        {"name": "frames_stream", "route": "cuda",
+         "source": "facedeform_tpu_torch/csrc/frames.cu",
+         "replaces": "facedeform_tpu/ops/pallas_eval.py:616", "part_of": "eval_frames",
+         "launches": main_b["launches"]["frames_stream"], "max_abs_err": err_pack,
+         "ms": t["packing"][0], "plain_ms": t["packing plain"][0],
+         **_bound(pack_bytes, (3 * n + 4 * 8 * nt * -(-n // 8) * 8, PEAK_F32)),
+         "library_ms": None},
         {"name": "jacobian", "route": "cuda",
          "source": "facedeform_tpu_torch/csrc/jacobian.cu",
          "replaces": "facedeform_tpu/ops/pallas_jacobian.py:160",
@@ -1159,6 +1227,68 @@ def time_frames(main_b: dict, label: str) -> list:
          "ms": jt["jacobian"][0], "plain_ms": jt["jacobian plain"][0],
          **_jac_bound(1, v, n), "library_ms": None},
     ]
+
+
+def time_frames_part(dev, label: str) -> dict:
+    """--frames, part alone: the frames kernel at slice B's shot, 1M x 1k x
+    8 frames (the fitted 8 poses of main_path_frames), and at F = 16, 17,
+    32 (fitted poses of the same rig), through evaluate_cuda_frames and
+    alone (profiler, every launch of a call summed), and apply_frames per
+    frame at F = 8, 11, 16, 17, 32, 33; also F = 1 and 2.  Best of 5
+    interleaved rounds of 10 calls.  It calls only
+    entry points the parent commit has too, so run from a parent checkout
+    it times the parent's kernel by the same code.  Returns {name: (best,
+    median, spread)}."""
+    from facedeform_tpu_torch import DeformConfig, DeformParams
+    from facedeform_tpu_torch.benchmark import stats, time_cuda
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points, uv_sphere
+    from facedeform_tpu_torch.ops import cuda_eval, temporal
+    from facedeform_tpu_torch.ops.fit import RBFModel, effective_kernel
+    from facedeform_tpu_torch.parallel import batched
+
+    rng = np.random.default_rng(0)  # main_path_frames' shot
+    rest = fibonacci_points(1000)
+    raw = np.stack([rest + 0.05 * rng.standard_normal((1000, 3)).astype(np.float32)
+                    for _ in range(8)])
+    cfg, params = DeformConfig(tangent=True), DeformParams()
+    model, _ = batched.fit_frames(rest, temporal.smooth_frames(raw, window=5), cfg, params,
+                                  device=dev)
+    more = rest + 0.05 * np.random.default_rng(3).standard_normal(
+        (33,) + rest.shape).astype(np.float32)
+    model33, _ = batched.fit_frames(rest, more, cfg, params, device=dev)
+    pts = torch.as_tensor(uv_sphere(1000, 1000).points, device=dev)
+    v = pts.shape[0]
+    zeros, ones = torch.zeros(v, device=dev), torch.ones(v, device=dev)
+    kernel, term = effective_kernel(cfg), cfg.term
+
+    def first(nf, m=model33):
+        return RBFModel(ctrl=m.ctrl, w_rbf=m.w_rbf[:nf], w_poly=m.w_poly[:nf], eps=m.eps)
+
+    def frames(m):
+        return lambda: cuda_eval.evaluate_cuda_frames(m, pts, zeros, ones, 1.0, 1.0, kernel,
+                                                      term)
+
+    fns = {"frames 1M x 1k x 8": frames(model)}
+    fns.update({f"frames F={nf}": frames(first(nf)) for nf in (1, 2, 16, 17, 32)})
+    fns.update({f"apply_frames F={nf}": (lambda m: lambda: batched.apply_frames(
+        m, pts, zeros, ones, cfg, params))(first(nf)) for nf in FRAMES_TIMED_F})
+    t = {k: stats(x) for k, x in time_cuda(fns, rounds=5, iters=10).items()}
+    for k, x in t.items():
+        extra = (f"; {x[0] / int(k.split('=')[1]):.4f} ms per frame"
+                 if k.startswith("apply_frames") else "")
+        print(_fmt(k, x, f"{extra}  [{label}]"))
+    alone = {f"{k} kernel alone": _kernel_alone_ms(fns[k], "frames_kernel")
+             for k in ("frames 1M x 1k x 8", "frames F=16", "frames F=17", "frames F=32")}
+    for k, x in alone.items():
+        print(f"time {k}: {x:.4f} ms (profiler, 20 calls)  [{label}]")
+    for k, m in (("frames 1M x 1k x 8", model), ("frames F=17", first(17))):
+        want, _ = cuda_eval.evaluate_frames_reference(m, pts, zeros, ones, 1.0, 1.0, kernel, term)
+        e = float(torch.max(torch.abs(fns[k]()[0] - want)))
+        print(f"{k}: max |kernel - plain| {e:.3e} (tol {POS_TOL_DECAYING:g})")
+        _check(e <= POS_TOL_DECAYING, f"{k} disagrees with the plain version")
+    print(json.dumps({"frames": {k: list(x) for k, x in t.items()}, **alone,
+                      "device": label}))
+    return t
 
 
 def _with_lo(model, rng, dev):
@@ -2044,6 +2174,20 @@ def _pu_bound(f, v, vp, k_, p_, n_items, pairs, tensor_cores: bool) -> dict:
     return _bound(n_bytes, (15 * pairs, PEAK_F32), (6 * 3 * f * pairs, PEAK_TF32))
 
 
+def _frames_bound(f, v, n, tensor_cores: bool = True) -> dict:
+    """The frames kernel's bound at L = 1: per pair d2 8, s 1, exp(-s) 2 at
+    the f32 rate, and the contraction on the tensor cores, 3 passes x 2 x
+    the 3F columns it needs at the TF32 rate, beside the rest (their pipes
+    overlap); or the CUDA-core formula (tensor_cores=False, the scalar
+    kernel's): d2 8, s 1, exp 2 and 3F FMAs at the f32 rate; bytes:
+    points, dist2, gate, falloff, (F, V, 3) out; ctrl, inv_eps2, (N, 3F)
+    weights, tails."""
+    n_bytes = 24 * v + 12 * f * v + 16 * n + 12 * f * n + 48 * f
+    if not tensor_cores:
+        return _bound(n_bytes, ((11 + 6 * f) * v * n, PEAK_F32))
+    return _bound(n_bytes, (11 * v * n, PEAK_F32), (6 * 3 * f * v * n, PEAK_TF32))
+
+
 def _jac_bound(f, v, n, tensor_cores: bool = True) -> dict:
     """The Jacobian kernel's bound at L = 1: per pair d2 8, s 1, phi' 2,
     the three D_b = phi' (c - x)_b 3 at the f32 rate, and the contraction
@@ -2532,6 +2676,10 @@ def main() -> int:
     if "--eval" in sys.argv[1:]:
         # the dense and culled eval kernels' timing alone
         time_eval(dev, label)
+        return 0
+    if "--frames" in sys.argv[1:]:
+        # the frames eval kernel's timing alone
+        time_frames_part(dev, label)
         return 0
 
     check_kernels(dev)

@@ -87,7 +87,7 @@ __device__ __forceinline__ float phi_prime_of(float s) {
   }
 }
 
-// ---- 3xTF32 contraction on the tensor cores (pu.cu, jacobian.cu) --------
+// ---- 3xTF32 contraction on the tensor cores (pu.cu, jacobian.cu, frames.cu)
 //
 // mma.sync.m16n8k8 with tf32 inputs and f32 accumulation: per warp, a
 // 16 x 8 A tile times an 8 x 8 B tile.  Lane l = 4 g + t (g = l >> 2,

@@ -17,6 +17,11 @@ culled kernels read the controls as packed records, built once per call on
 the card (control_records, culled_tables; their plain twins
 control_records_reference, culled_tables_reference); the culled kernel
 also reads a bbox table per 128-control slab and per 32-control sub-slab.
+The frames kernel contracts phi with the weights on the tensor cores
+(3xTF32, ops/tf32.py), up to FRAMES_PER_LAUNCH frames a launch in balanced
+chunks (frames_launch_plan); each launch reads a stream of control records
+and pre-split weight fragments built on the card by one launch
+(frames_stream; plain twin frames_stream_reference).
 
 The kernels (these, csrc/jacobian.cu's in ops/cuda_jacobian.py,
 csrc/precise.cu's in ops/cuda_precise.py and csrc/pu.cu's in
@@ -38,6 +43,7 @@ from pathlib import Path
 import torch
 
 from facedeform_tpu_torch.config import PolyTerm, RBFKernel
+from facedeform_tpu_torch.ops import tf32
 from facedeform_tpu_torch.ops.evaluate import _center_phi, evaluate
 from facedeform_tpu_torch.ops.falloff import falloff_weight
 from facedeform_tpu_torch.ops.fit import RBFModel
@@ -71,7 +77,9 @@ ABI = {
     "fd_pack_records": "p" * 6 + "iiip",
     "fd_morton": "ppip",
     "fd_cull_pack": "p" * 9 + "i" * 4 + "fp",
-    "fd_eval_frames": "p" * 12 + "i" * 9 + "ffp",
+    "fd_eval_frames": "p" * 10 + "i" * 11 + "ffp",
+    "fd_frames_pack": "p" * 6 + "i" * 7 + "p",
+    "fd_frames_geometry": "pi",
     "fd_jacobian": "p" * 3 + "i" * 8 + "p",
     "fd_eval_precise": "p" * 13 + "i" * 8 + "ffp",
     "fd_log_probe": "p" * 3 + "ip",
@@ -151,6 +159,14 @@ def build() -> str:
         _lib = None
         raise RuntimeError(f"csrc/eval.cu culls by {geom}, this module by "
                            f"{_CULL_BLOCK}-control slabs of {_CULL_SUB}-control sub-slabs")
+    for n_layers in (1, 2, 4):
+        geom = frames_geometry(n_layers)
+        want = {"max_frames": FRAMES_PER_LAUNCH, "tiles": FRAMES_TILES,
+                "step_floats": tuple(frames_step_floats(nt, n_layers) for nt in FRAMES_TILES)}
+        if geom != want:
+            _lib = None
+            raise RuntimeError(f"csrc/frames.cu launches {geom} at L = {n_layers}, "
+                               f"this module plans {want}")
     return log
 
 
@@ -162,6 +178,19 @@ def cull_geometry() -> dict:
     geom = (ctypes.c_int * 4)()
     _lib.fd_cull_geometry(ctypes.addressof(geom))
     return dict(zip(("block_verts", "warp_verts", "slab", "sub"), geom))
+
+
+def frames_geometry(n_layers: int = 1) -> dict:
+    """The built frames kernel's launch geometry: frames a launch at most
+    (max_frames), the n8 tile counts it is instantiated for (tiles) and the
+    floats of a staged k-step at each for n_layers layers (step_floats).
+    Builds the library if needed."""
+    build()
+    geom = (ctypes.c_int * 34)()
+    _lib.fd_frames_geometry(ctypes.addressof(geom), n_layers)
+    k = geom[1]
+    return {"max_frames": geom[0], "tiles": tuple(geom[2:2 + k]),
+            "step_floats": tuple(geom[2 + k:2 + 2 * k])}
 
 
 def evaluate_reference(
@@ -548,11 +577,46 @@ def _pairs_ptr(pairs, dev):
     return pairs.data_ptr()
 
 
-# Frames per launch of the frames kernel (kMaxFrames in csrc/frames.cu):
-# its 3F accumulators live in registers, so the wrapper loops over chunks.
-# 16 holds without spills and ran 0.315 ms per frame at F = 32 against
-# 0.410 ms with 8 (1M x 1k, H100).
-FRAMES_PER_LAUNCH = 16
+# Frames a launch of the frames kernel (kMaxFrames in csrc/frames.cu; build()
+# checks this and FRAMES_TILES against the library's frames_geometry): 3
+# weight columns a frame in at most 12 n8 tiles of the mma, whose
+# accumulators live in registers (48 a lane).  A longer shot takes the
+# fewest launches of balanced size (frames_launch_plan), so no launch
+# recomputes every distance and phi for a frame or two.
+FRAMES_PER_LAUNCH = 32
+# n8 tiles of weight columns the frames kernel is instantiated for (NT,
+# FramesTiles in csrc/frames.cu); a launch takes the fewest that hold its
+# 3 nf columns.  7 keeps 17 frames (51 columns) at two blocks an SM (8
+# tiles: one).
+FRAMES_TILES = (1, 2, 3, 4, 6, 7, 8, 12)
+
+
+def frames_launch_tiles(nf: int) -> int:
+    """NT of a launch of nf frames: the n8 tiles its 3 nf columns take."""
+    if not 1 <= nf <= FRAMES_PER_LAUNCH:
+        raise ValueError(f"a frames launch takes 1 to {FRAMES_PER_LAUNCH} frames, got {nf}")
+    return tf32.n_tiles(3 * nf, FRAMES_TILES)
+
+
+def frames_launch_plan(n_frames: int) -> list:
+    """(f0, nf, NT) per launch: the fewest launches of at most
+    FRAMES_PER_LAUNCH frames, their sizes differing by at most one, the
+    larger first (33 frames: 17 + 16)."""
+    k = -(-n_frames // FRAMES_PER_LAUNCH)
+    size, extra = divmod(n_frames, k)
+    plan, f0 = [], 0
+    for i in range(k):
+        nf = size + (i < extra)
+        plan.append((f0, nf, frames_launch_tiles(nf)))
+        f0 += nf
+    return plan
+
+
+def frames_step_floats(nt: int, n_layers: int) -> int:
+    """Floats of a staged k-step (step_floats in csrc/frames.cu): 8 control
+    records (x, y, z, 1/eps_0^2), 8 (L - 1) 1/eps^2, then per layer NT
+    fragment blocks of 32 x 4 floats."""
+    return 24 + 8 * n_layers + 128 * nt * n_layers
 
 
 def frame_model(model, f) -> RBFModel:
@@ -585,9 +649,72 @@ def evaluate_frames_reference(
 
 def pack_frames(w: torch.Tensor) -> torch.Tensor:
     """(F, L, N, 3) weights -> (L, N, 3F), column 3f + k = frame f's
-    component k: the layout both frames kernels read."""
+    component k: the frames kernels' column order."""
     f, n_layers, n, _ = w.shape
     return w.permute(1, 2, 0, 3).reshape(n_layers, n, 3 * f).contiguous()
+
+
+def _frame_columns(model, f0: int, nf: int, rows: int, cols: int) -> torch.Tensor:
+    """Frames [f0, f0 + nf)'s weight columns, (L, rows, cols) zero-padded."""
+    n_layers, n = model.eps.shape
+    w = model.w_rbf.new_zeros((n_layers, rows, cols))
+    w[:, :n, :3 * nf] = pack_frames(model.w_rbf[f0:f0 + nf])
+    return w
+
+
+def frames_stream_reference(model, f0: int, nf: int, nt: int):
+    """Plain twin of frames_stream: the operands of the launch of frames
+    [f0, f0 + nf) of a frames-stacked model in NT n8 tiles, (stream (T,
+    frames_step_floats), tails (4, 8 NT)).  Per k-step of 8 controls (T =
+    ceil(N / 8)): their records (x, y, z, 1/eps_0^2), the 1/eps^2 of layers
+    1 .. L - 1 (padding controls (0, 0, 0) and 1: a finite phi), then per
+    layer the weight columns 3 f0 .. 3 (f0 + nf) zero-padded to 8 NT, split
+    into tf32 words in mma fragment order (tf32.mma_fragments).  The tails:
+    w_poly rows [1, x, y, z] of those columns, zero-padded."""
+    n_layers, n = model.eps.shape
+    t = -(-n // 8)
+    inv_eps2 = _inv_eps2(model.eps)
+    rec = model.ctrl.new_zeros((8 * t, 4))
+    rec[:n, :3] = model.ctrl
+    rec[:, 3] = 1.0
+    rec[:n, 3] = inv_eps2[0]
+    ies = model.ctrl.new_ones((n_layers - 1, 8 * t))
+    ies[:, :n] = inv_eps2[1:]
+    frags = tf32.mma_fragments(_frame_columns(model, f0, nf, 8 * t, 8 * nt))
+    stream = torch.cat([rec.reshape(t, 32),
+                        ies.reshape(n_layers - 1, t, 8).transpose(0, 1).reshape(t, -1),
+                        frags.transpose(0, 1).reshape(t, -1)], dim=1).contiguous()
+    m = model.w_poly.shape[1]
+    tails = model.w_poly.new_zeros((4, 8 * nt))
+    tails[:m, :3 * nf] = model.w_poly[f0:f0 + nf].permute(1, 0, 2).reshape(m, 3 * nf)
+    return stream, tails
+
+
+def frames_stream(model, f0: int, nf: int, nt: int):
+    """What the frames kernel reads for the launch of frames [f0, f0 + nf)
+    in NT tiles, as frames_stream_reference lays it out: on CUDA one launch
+    of csrc/frames.cu's frames_pack_kernel (equal bit for bit), on the CPU
+    that twin.  The model's tensors must pass _check_inputs(frames=True)."""
+    if model.ctrl.device.type == "cpu":
+        return frames_stream_reference(model, f0, nf, nt)
+    build()
+    n_frames, n_layers, n, _ = model.w_rbf.shape
+    t = -(-n // 8)
+    n_stream = t * frames_step_floats(nt, n_layers)
+    dev = model.ctrl.device
+    buf = torch.empty(n_stream + 32 * nt, dtype=torch.float32, device=dev)
+    stream, tails = buf[:n_stream].view(t, -1), buf[n_stream:].view(4, -1)
+    with torch.cuda.device(dev):
+        _raise_on(_lib.fd_frames_pack(
+            model.ctrl.data_ptr(), model.w_rbf.data_ptr(), model.eps.data_ptr(),
+            model.w_poly.data_ptr(), stream.data_ptr(), tails.data_ptr(),
+            model.w_poly.shape[1], n, n_layers, n_frames, f0, nf, nt, _stream(dev)),
+            "fd_frames_pack")
+    frames_stream.launches += 1
+    return stream, tails
+
+
+frames_stream.launches = 0
 
 
 def evaluate_cuda_frames(
@@ -600,7 +727,9 @@ def evaluate_cuda_frames(
     tile_v/interpret: model.w_rbf (F, L, N, 3) and model.w_poly (F, m, 3)
     carry a leading frame axis, ctrl and eps are shared.  Distances and phi
     are computed once per (vertex, control) for up to FRAMES_PER_LAUNCH
-    frames; longer shots take one launch per chunk."""
+    frames; longer shots take the fewest launches of balanced size
+    (frames_launch_plan), each after one packing launch (frames_stream).
+    A frame comes out bit for bit the same whichever launch holds it."""
     if points.device.type == "cpu":
         return evaluate_frames_reference(model, points, dist2, gate, radius, falloffrate,
                                          kernel, term, strict_parity, frame)
@@ -615,26 +744,16 @@ def evaluate_cuda_frames(
     if v == 0:
         return out, falloff
     build()
-    w_pack = pack_frames(model.w_rbf)
-    m = model.w_poly.shape[1]
-    w_poly = torch.zeros((n_frames, 4, 3), dtype=torch.float32, device=points.device)
-    w_poly[:, :m] = model.w_poly
-    w_poly = w_poly.permute(1, 0, 2).reshape(4, 3 * n_frames).contiguous()
-    inv_eps2 = _inv_eps2(model.eps)
-    stream = torch.cuda.current_stream(points.device).cuda_stream
     with torch.cuda.device(points.device):
-        for f0 in range(0, n_frames, FRAMES_PER_LAUNCH):
-            nf = min(FRAMES_PER_LAUNCH, n_frames - f0)
-            err = _lib.fd_eval_frames(
-                points.data_ptr(), dist2.data_ptr(), gate.data_ptr(),
-                model.ctrl.data_ptr(), w_pack.data_ptr(), inv_eps2.data_ptr(),
-                w_poly.data_ptr(), *_frame_ptrs(frame), out.data_ptr(),
-                falloff.data_ptr(), v, n, n_layers, n_frames, f0, nf, int(kernel),
+        stream = _stream(points.device)
+        for f0, nf, nt in frames_launch_plan(n_frames):
+            operands, tails = frames_stream(model, f0, nf, nt)
+            _raise_on(_lib.fd_eval_frames(
+                points.data_ptr(), dist2.data_ptr(), gate.data_ptr(), operands.data_ptr(),
+                tails.data_ptr(), *_frame_ptrs(frame), out.data_ptr(), falloff.data_ptr(),
+                v, n, n_layers, operands.shape[0], n_frames, f0, nf, nt, int(kernel),
                 int(strict_parity), int(_center_phi(kernel, term)),
-                _r2(radius), float(falloffrate), stream,
-            )
-            if err != 0:
-                raise RuntimeError(f"fd_eval_frames launch failed: CUDA error {err}")
+                _r2(radius), float(falloffrate), stream), "fd_eval_frames")
             evaluate_cuda_frames.launches += 1
     return out, falloff
 

@@ -1,8 +1,9 @@
 """Error-compensated TF32 contraction (3xTF32): the operand split and
-fragment layout the PU tile kernel (csrc/pu.cu) and the Jacobian kernel
-(csrc/jacobian.cu) take, and the plain emulation their CPU tests use.
+fragment layout the PU tile kernel (csrc/pu.cu), the Jacobian kernel
+(csrc/jacobian.cu) and the frames eval kernel (csrc/frames.cu) take, and
+the plain emulation their CPU tests use.
 
-Both kernels contract a tile they compute in registers (A: points x
+The kernels contract a tile they compute in registers (A: points x
 controls) with constant weight columns (B: controls x columns) on the
 tensor cores, mma.sync m16n8k8 with tf32 inputs and f32 accumulation
 (csrc/common.cuh, mma_3xtf32).  Each operand is split into a tf32 word and
