@@ -84,6 +84,35 @@
    20k-control x 8-pose PUSeqDeformer: displacement_frames and apply_seq
    (capture d2, gate, tangent frame), one launch each, every frame against
    its single-pose kernel run, the shot against the twin;
+6c. holds the Krylov route (solver="krylov") against the dense fit at 2000
+   and 4096 controls for QNN (GMRES), KERNEL-gaussian and multilayer L3
+   (block-Jacobi PMINRES) and TPS (|.|-block-Jacobi PMINRES), fields on a
+   4096-point shell at the JAX package's Krylov tolerance (TPS: within
+   1.5x the JAX route's own distance from the dense field on the same
+   2000-control rig; at 4096 printed), each fit's health at its route's
+   threshold, printing each fit's sweeps (iterations, matvecs) and walls;
+6d. runs the large-rig main path: Fibonacci rigs through Deformer.fit with
+   solver "auto" (QNN at 25k -> GMRES, KERNEL-gaussian at 50k -> PMINRES,
+   TPS at 16k -> |.|-block-Jacobi PMINRES) and apply("auto") on the 1M
+   sphere (the culled kernel, the precise kernel), each apply on a
+   4096-vertex subset against its kernel's plain twin and a float64 dense
+   solve of the same saddle system on the card (held to the Krylov
+   tolerance for QNN and gaussian; TPS's distance printed, its backward
+   error checked); a 4-pose TPS shot at 16k through fit_frames ->
+   check_frames (the Krylov-CPD route) -> apply_frames (one precise frames
+   launch), every frame's model equal to its single fit; launch counters
+   read around it; per rig the preconditioner's setup, the fit's wall,
+   iterations per sweep, the backward error and the matvec's time an
+   iteration; then the dense route's fit at 8192 and 16384 controls
+   against the Krylov route's (QNN and TPS: the crossover);
+6e. runs the interactive-drag main path: the default config at 1000
+   controls, Deformer.fit_with_plan, then 16 marker drags through
+   plan.refit + apply on the 1M sphere (the culled kernel), each refit
+   model equal to Deformer.fit of its pose bit for bit; a TPS plan at 4096
+   controls (GMRES-IR against stored factors, the precise kernel) the same
+   way; refit against fit in CUDA-event ms; then apply(spatial_perm=)
+   against the natural order of a randomly permuted 1M sphere, with the
+   Morton sort and the 1M-row gather timed alone;
 7. times fit, each kernel and its plain version (the dense and culled
    kernels also alone, by the profiler, and the culled kernel's computed
    against needed pairs), the frames kernel (also alone, by the profiler,
@@ -99,7 +128,7 @@
    the 30k PU fit and the PU kernel (facedeform_tpu_torch.benchmark);
 8. prints a kernels JSON line (per kernel its time, its plain version's,
    its bound from this run's inputs and which of bytes or operations binds
-   it, library_ms null: no single PyTorch call computes an RBF or PU
+   it, the launches of phases 6d and 6e by path, library_ms null: no single PyTorch call computes an RBF or PU
    field; the dense and culled kernels also their time alone, the culled
    kernel the pairs it computed, counted on the card, over the pairs it
    needs; the frames kernel its time alone, the larger of its tensor-core
@@ -114,11 +143,13 @@ final record): --precise-bases times the precise kernel per basis,
 kernels and --frames the frames eval kernel (1M x 1k x 8 and F = 1, 2, 16,
 17, 32; apply_frames per frame at F = 8 to 33) at their main-path shapes,
 each through entry points a parent commit has too, so that a parent
-checkout (the script copied into it) is timed by the same code.
+checkout (the script copied into it) is timed by the same code; --krylov
+runs phases 6c, 6d and 6e alone.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import sys
@@ -183,6 +214,35 @@ PU_SHOT_CENTERS = ((0, 1, 0), (1, 0, 0), (0, 0, 1), (0, -1, 0), (-1, 0, 0), (0, 
 # host-clock rounds of the PU fits and host builds: their walls vary with
 # the shared host, so the medians of interleaved rounds are what to read
 PU_WALL_ROUNDS = 7
+# A Krylov field against the dense or float64 one, err <= a + b * scale
+# with scale the reference field's max |disp|.  Decaying kernels converge
+# to the solvers' 1e-7: the JAX package's bound (tests/test_krylov.py).
+KRYLOV_TOL_DECAYING = (5e-5, 1e-3)
+# CPD kernels (TPS) stop at the f32 Krylov floor, which the JAX package
+# documents as percent-level (a true relative residual of 4.9e-2 at 16k TPS
+# controls, its docs/PERFORMANCE.md), and which grows with N: the JAX
+# test's 5e-3 of scale holds up to ~1000 controls, but on phase 6c's
+# 2000-control TPS rig the JAX route's own field sits 4.2247e-2 of scale
+# from the dense field (facedeform_tpu on the CPU, measured again by
+# tests/test_torch_krylov.py).  So the port's field is held to that, times
+# KRYLOV_CPD_VS_JAX for the rounding that two f32 implementations'
+# iterates differ by, which the ill-conditioning amplifies; where no JAX
+# measurement exists (4096, 16k: a full-size JAX solve is no CPU job) the
+# distance is printed and the route's health, its backward error, checked.
+JAX_TPS_KRYLOV_REL_ERR = {2000: 4.2247e-2}
+KRYLOV_CPD_VS_JAX = 1.5
+KRYLOV_CPD_BACKWARD_TOL = 1e-3   # errors.KRYLOV_CPD_BACKWARD_RTOL
+# phase 6c's control counts, and the large-rig main path's rigs: QNN and
+# TPS as the JAX package's benchmark configs 6 and 8 (default params, 25k;
+# radius 1, lam 0.01, 16k), the gaussian KERNEL rig at 50k with a radius of
+# about two control spacings
+KRYLOV_PARITY_N = (2000, 4096)
+LARGE_QNN_N, LARGE_GAUSS_N, LARGE_TPS_N = 25_000, 50_000, 16_384
+LARGE_GAUSS_RADIUS = 0.03
+# the dense route's fit timed at these counts against the Krylov route's
+CROSSOVER_N = (8192, 16_384)
+DRAG_N, DRAGS = 1000, 16         # phase 6e's marker drags on the default config
+TPS_PLAN_N, TPS_DRAGS = 4096, 4  # and on a TPS plan
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet) for the bound_ms of the
 # kernels line: f32 and fp64 outside the tensor cores, fp64 on the tensor
@@ -1565,18 +1625,6 @@ def check_diff_kernel(dev) -> float:
     return worst
 
 
-def _phi64(kernel, d2, eps):
-    """TPS or MQ phi of squared distances in float64, written out."""
-    from facedeform_tpu_torch.config import RBFKernel
-
-    s = d2 / (eps * eps)
-    if kernel == RBFKernel.THIN_PLATE:
-        return torch.where(s > 0, 0.5 * s * torch.log(torch.clamp(s, min=1e-300)),
-                           torch.zeros_like(s))
-    _check(kernel == RBFKernel.MULTIQUADRIC, f"no oracle phi for {kernel.name}")
-    return torch.sqrt(1.0 + s)
-
-
 def _oracle_kernel_disp(rest, deformed, pts, kernel, eps, lam):
     """Float64 KERNEL-mode fit (global radius, ridge, linear tail, the
     -1e-8 tail block) and field, written out independently of the port."""
@@ -2627,6 +2675,498 @@ def _jacobian64(model, pts, kernel, term, chunk=4096):
     return jac
 
 
+# ------------------------------------------------------------ Krylov route
+def _krylov_ok(kind: str, n: int, err: float, scale: float):
+    """(err within the route's bound, the bound); the bound is None for a
+    CPD field with no JAX measurement at n (printed, not checked)."""
+    if kind != "cpd":
+        a, b = KRYLOV_TOL_DECAYING
+        return err <= a + b * scale, a + b * scale
+    if n not in JAX_TPS_KRYLOV_REL_ERR:
+        return True, None
+    bound = KRYLOV_CPD_VS_JAX * JAX_TPS_KRYLOV_REL_ERR[n] * scale
+    return err <= bound, bound
+
+
+def _bound_txt(bound) -> str:
+    return "not checked: no JAX measurement" if bound is None else f"bound {bound:.3e}"
+
+
+class _KrylovProbe:
+    """Records what ops/fit's Krylov route does inside the `with` block:
+    each preconditioner's setup seconds (block inverses or eigh) and each
+    solver sweep's matvecs and seconds.  fit() calls these functions through
+    the ops.krylov module, so wrapping the module's attributes sees them;
+    they are restored on exit.  PMINRES runs (warm start) + iterations + 1
+    matvecs, GMRES (warm start) + restarts x (32 + 2) + 1."""
+
+    SOLVERS = ("gmres", "pminres")
+    SETUPS = ("make_block_jacobi", "make_abs_block_jacobi")
+
+    def __enter__(self):
+        from facedeform_tpu_torch.ops import krylov
+
+        self.mod = krylov
+        self.saved = {k: getattr(krylov, k) for k in self.SOLVERS + self.SETUPS}
+        self.setup_s, self.sweeps = [], []
+
+        def timed_setup(real):
+            def wrapped(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(*a, **kw)
+                torch.cuda.synchronize()
+                self.setup_s.append(time.perf_counter() - t0)
+                return out
+            return wrapped
+
+        def counted_solver(name, real):
+            def wrapped(matvec, b, *a, **kw):
+                calls = [0]
+
+                def counted(x):
+                    calls[0] += 1
+                    return matvec(x)
+
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(counted, b, *a, **kw)
+                torch.cuda.synchronize()
+                warm = int(kw.get("x0") is not None)
+                n_mv = calls[0]
+                iters = (n_mv - 1 - warm) if name == "pminres" else (n_mv - 1 - warm) // 34
+                self.sweeps.append({"solver": name, "matvecs": n_mv, "iterations": iters,
+                                    "warm": bool(warm), "s": time.perf_counter() - t0})
+                return out
+            return wrapped
+
+        for k in self.SETUPS:
+            setattr(krylov, k, timed_setup(self.saved[k]))
+        for k in self.SOLVERS:
+            setattr(krylov, k, counted_solver(k, self.saved[k]))
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.saved.items():
+            setattr(self.mod, k, fn)
+        return False
+
+    def summary(self) -> str:
+        unit = {"pminres": "iterations", "gmres": "restarts of 32"}
+        sweeps = ", ".join(f"{s['iterations']} {unit[s['solver']]} ({s['matvecs']} matvecs, "
+                           f"{s['s']:.3f} s{', warm' if s['warm'] else ''})"
+                           for s in self.sweeps)
+        return (f"setup {sum(self.setup_s):.3f} s; {len(self.sweeps)} sweeps: {sweeps}")
+
+
+def _phi64(kernel, d2, eps):
+    """TPS, MQ or gaussian phi of squared distances in float64, written
+    out; eps broadcasts over the control axis."""
+    from facedeform_tpu_torch.config import RBFKernel
+
+    s = d2 / (eps * eps)
+    if kernel == RBFKernel.THIN_PLATE:
+        return torch.where(s > 0, 0.5 * s * torch.log(torch.clamp(s, min=1e-300)),
+                           torch.zeros_like(s))
+    if kernel == RBFKernel.GAUSSIAN:
+        return torch.exp(-s)
+    _check(kernel == RBFKernel.MULTIQUADRIC, f"no oracle phi for {kernel.name}")
+    return torch.sqrt(1.0 + s)
+
+
+def _sqdist64(x, y):
+    dx, dy, dz = (x[:, None, i] - y[None, :, i] for i in range(3))
+    return dx * dx + dy * dy + dz * dz
+
+
+def _saddle_field64(ctrl, eps, lam, kernel, delta, pts, chunk=2048):
+    """Float64 dense solve of a one-layer saddle system (linear tail, the
+    -1e-8 tail block, phi(|c_i - c_j| / eps_j) + lam_i on the diagonal),
+    assembled in row chunks on the card and LU-solved there, then its field
+    at pts: (V, 3) float64.  The 50k-control system is 20 GB, its LU
+    another 20."""
+    c = ctrl.double()
+    n = c.shape[0]
+    e = torch.broadcast_to(torch.as_tensor(eps, device=c.device).double(), (n,))
+    a = torch.empty((n + 4, n + 4), dtype=torch.float64, device=c.device)
+    for rows in torch.split(torch.arange(n, device=c.device), chunk):
+        a[rows[0]:rows[-1] + 1, :n] = _phi64(kernel, _sqdist64(c[rows], c), e)
+    a[:n, :n].diagonal().add_(torch.broadcast_to(torch.as_tensor(lam, device=c.device)
+                                                 .double(), (n,)))
+    p = torch.cat([torch.ones(n, 1, dtype=c.dtype, device=c.device), c], 1)
+    a[:n, n:] = p
+    a[n:, :n] = p.T
+    a[n:, n:] = -1e-8 * torch.eye(4, dtype=c.dtype, device=c.device)
+    lu, piv, _ = torch.linalg.lu_factor_ex(a)
+    del a
+    b = torch.cat([delta.double(), torch.zeros(4, 3, dtype=c.dtype, device=c.device)])
+    x = torch.linalg.lu_solve(lu, piv, b)
+    del lu
+    q = pts.double()
+    pq = torch.cat([torch.ones(len(q), 1, dtype=q.dtype, device=q.device), q], 1)
+    out = [_phi64(kernel, _sqdist64(qc, c), e) @ x[:n] for qc in torch.split(q, 512)]
+    return torch.cat(out) + pq @ x[n:]
+
+
+def _krylov_cfg(model, kernel, solver, layers=1):
+    from facedeform_tpu_torch import DeformConfig
+
+    return DeformConfig(model=model, kernel=kernel, layers=layers, solver=solver)
+
+
+def check_krylov_parity(dev, label: str) -> float:
+    """Phase 6c: forced solver="krylov" against the dense fit at 2000 and
+    4096 controls for QNN, KERNEL-gaussian, multilayer L3 and TPS, fields
+    compared on a 4096-point shell at the Krylov bounds above (_krylov_ok),
+    the fits' health at their routes' thresholds.  Returns the worst err /
+    bound."""
+    from facedeform_tpu_torch import DeformParams, Deformer
+    from facedeform_tpu_torch.config import RBFKernel, RBFModelType
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points
+
+    cases = [
+        ("QNN", RBFModelType.QNN, RBFKernel.GAUSSIAN, 1, DeformParams(), "decaying"),
+        ("KERNEL-gaussian", RBFModelType.KERNEL, RBFKernel.GAUSSIAN, 1,
+         DeformParams(radius=0.15, lam=0.01), "decaying"),
+        # the first layer ~5.5 control spacings wide at 4096: at radius 0.6
+        # (~11) its PMINRES stops at maxiter 256 short of the health check
+        # (backward error 1.3e-6 after 2 sweeps; PERF.md, PR 9)
+        ("multilayer L3", RBFModelType.MULTILAYER, RBFKernel.GAUSSIAN, 3,
+         DeformParams(radius=0.3, lam=0.05), "decaying"),
+        ("TPS", RBFModelType.KERNEL, RBFKernel.THIN_PLATE, 1,
+         DeformParams(radius=1.0, lam=0.01), "cpd"),
+    ]
+    rng = np.random.default_rng(3)
+    pts = torch.as_tensor(fibonacci_points(4096) * 1.02, device=dev)
+    worst = 0.0
+    for n in KRYLOV_PARITY_N:
+        rest = fibonacci_points(n)
+        deformed = rest + 0.05 * rng.standard_normal((n, 3)).astype(np.float32)
+        for name, model, kernel, layers, params, kind in cases:
+            out, wall, probe = {}, {}, None
+            for solver in ("direct", "krylov"):
+                cfg = _krylov_cfg(model, kernel, solver, layers)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if solver == "krylov":
+                    with _KrylovProbe() as probe:
+                        d = Deformer.fit(rest, deformed, cfg, params, device=dev)
+                else:
+                    d = Deformer.fit(rest, deformed, cfg, params, device=dev)
+                torch.cuda.synchronize()
+                wall[solver] = time.perf_counter() - t0
+                out[solver] = (d.displacement(pts).double(), d)
+            ref, dk = out["direct"][0], out["krylov"][1]
+            err = float(torch.max(torch.abs(out["krylov"][0] - ref)))
+            scale = float(torch.max(torch.abs(ref)))
+            ok, bound = _krylov_ok(kind, n, err, scale)
+            _check(dk.model.w_rbf_lo is None, f"{name}: a Krylov model carries lo words")
+            _check(float(dk.report.backward_error()) <= (
+                KRYLOV_CPD_BACKWARD_TOL if kind == "cpd" else BACKWARD_TOL),
+                f"{name} at {n}: Krylov backward error")
+            print(f"krylov parity {name} at {n}: max |d field| {err:.3e} = {err / scale:.3e} of "
+                  f"scale vs direct ({_bound_txt(bound)}, scale {scale:.3e}); backward error "
+                  f"{float(dk.report.backward_error()):.3e}; fit {wall['krylov']:.3f} s krylov, "
+                  f"{wall['direct']:.3f} s direct; {probe.summary()}  [{label}]", flush=True)
+            _check(ok, f"{name} at {n}: the Krylov field misses the dense one")
+            if bound is not None:
+                worst = max(worst, err / bound)
+    return worst
+
+
+def _large_rig(dev, name, cfg, params, n, rng, pts, idx, label):
+    """One rig of the large-rig main path: Deformer.fit (solver "auto")
+    and apply("auto") on the sphere, the displacement on the subset
+    against the kernel's plain twin and a float64 dense solve of the same
+    saddle system, the matvec's time."""
+    from facedeform_tpu_torch import Deformer
+    from facedeform_tpu_torch.benchmark import stats, time_cuda
+    from facedeform_tpu_torch.config import RBFModelType
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points
+    from facedeform_tpu_torch.ops import fit as fit_mod
+    from facedeform_tpu_torch.ops import krylov
+    from facedeform_tpu_torch.ops.evaluate import evaluate
+    from facedeform_tpu_torch.ops.precise_eval import evaluate_precise
+
+    rest = fibonacci_points(n)
+    deformed = rest + 0.03 * rng.standard_normal((n, 3)).astype(np.float32)
+    _check(fit_mod.uses_krylov(cfg, n), f"{name}: {n} controls must take the Krylov route")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _KrylovProbe() as probe:
+        d = Deformer.fit(rest, deformed, cfg, params, device=dev)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    out, w = d.apply(pts)
+    torch.cuda.synchronize()
+    kernel = fit_mod.effective_kernel(cfg)
+    kind = "decaying" if not fit_mod.krylov_cpd(cfg, n) else "cpd"
+    be = float(d.report.backward_error())
+    # the matvec a Krylov iteration applies, on this rig, 3 columns
+    eps = d.model.eps[0]
+    lam = 0.0 if cfg.model == RBFModelType.QNN else params.clamped().lam
+    mv = krylov.make_saddle_matvec(d.model.ctrl, kernel, cfg.term, eps, lam)
+    x = torch.randn(n + cfg.n_poly, 3, device=dev)
+    mv_ms = stats(time_cuda({"mv": lambda: mv(x)}, rounds=3, iters=3)["mv"])[0]
+    _check(tuple(out.shape) == (pts.shape[0], 3) and bool(torch.isfinite(out).all()),
+           f"{name}: apply output not finite of shape (V, 3)")
+    _check(bool((w == 1).all()), f"{name}: uncaptured vertices must deform fully")
+    # the kernel apply("auto") took against its plain twin on this model
+    disp = (out[idx] - pts[idx]).double()
+    twin_fn, twin_tol = ((evaluate_precise, PRECISE_POS_TOL) if kind == "cpd"
+                         else (evaluate, POS_TOL_DECAYING))
+    twin = twin_fn(d.model, pts[idx], kernel, cfg.term).double()
+    twin_err = float(torch.max(torch.abs(disp - twin)))
+    want = _saddle_field64(d.model.ctrl, eps, lam, kernel,
+                           torch.as_tensor(deformed, device=dev) - d.model.ctrl, pts[idx])
+    err = float(torch.max(torch.abs(disp - want)))
+    scale = float(torch.max(torch.abs(want)))
+    ok, bound = _krylov_ok(kind, n, err, scale)
+    print(f"large rig {name} {n} controls: fit {fit_s:.3f} s wall ({probe.summary()}); "
+          f"backward error {be:.3e}; matvec {mv_ms:.4f} ms an iteration (plain torch, "
+          f"{n + cfg.n_poly} x 3); apply('auto') at {pts.shape[0]} verts, 4096-vertex subset: "
+          f"vs the plain twin max |d disp| {twin_err:.3e} (tol {twin_tol:g}); vs a float64 "
+          f"dense solve of the same system {err:.3e} = {err / scale:.3e} of scale "
+          f"({_bound_txt(bound)}, scale {scale:.3e})  [{label}]", flush=True)
+    _check(be <= (KRYLOV_CPD_BACKWARD_TOL if kind == "cpd" else BACKWARD_TOL),
+           f"{name}: backward error {be:.3e}")
+    _check(twin_err <= twin_tol, f"{name}: apply('auto') disagrees with the plain twin")
+    _check(ok, f"{name}: the Krylov field misses the float64 solve")
+    return {"fit_s": fit_s, "setup_s": sum(probe.setup_s), "sweeps": probe.sweeps,
+            "backward_error": be, "matvec_ms": mv_ms, "err": err, "bound": bound,
+            "rest": rest, "deformer": d}
+
+
+def main_path_large_rigs(dev, label: str) -> dict:
+    """Phase 6d: the large-rig main path.  Fibonacci rigs on the 1M
+    sphere through Deformer.fit with solver "auto" (QNN at 25k -> GMRES,
+    KERNEL-gaussian at 50k -> PMINRES, TPS at 16k -> |.|-block-Jacobi
+    PMINRES), apply("auto") (the culled kernel #2, the precise kernel #5),
+    then a 4-pose TPS shot at 16k through fit_frames -> check_frames (the
+    Krylov-CPD route) -> apply_frames (#5's frames launch), with launch
+    counters read around it; applies against their kernels' plain twins
+    and float64 dense solves on the card; then the dense route's fit at
+    8192 and 16384 controls against the Krylov route's (the crossover)."""
+    from facedeform_tpu_torch import DeformConfig, DeformParams, Deformer
+    from facedeform_tpu_torch.config import RBFKernel, RBFModelType
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points, uv_sphere
+    from facedeform_tpu_torch.ops import cuda_eval, cuda_precise
+    from facedeform_tpu_torch.ops import fit as fit_mod
+    from facedeform_tpu_torch.ops.precise_eval import evaluate_precise
+    from facedeform_tpu_torch.parallel import batched
+    from facedeform_tpu_torch.utils import errors
+
+    torch.cuda.empty_cache()      # the 50k float64 check takes 40 GB at once
+    rng = np.random.default_rng(9)
+    pts = torch.as_tensor(uv_sphere(1000, 1000).points, device=dev)
+    v = pts.shape[0]
+    idx = torch.linspace(0, v - 1, 4096, device=dev).long()
+    rigs = {
+        "QNN": (DeformConfig(), DeformParams(), LARGE_QNN_N),
+        "KERNEL-gaussian": (DeformConfig(model=RBFModelType.KERNEL),
+                            DeformParams(radius=LARGE_GAUSS_RADIUS, lam=0.01), LARGE_GAUSS_N),
+        "TPS": (DeformConfig(model=RBFModelType.KERNEL, kernel=RBFKernel.THIN_PLATE),
+                DeformParams(radius=1.0, lam=0.01), LARGE_TPS_N),
+    }
+    counters = (cuda_eval.evaluate_cuda, cuda_eval.evaluate_cuda_culled,
+                cuda_eval.control_records, cuda_eval.culled_tables,
+                cuda_precise.evaluate_cuda_precise, cuda_precise.evaluate_cuda_precise_frames)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    results = {name: _large_rig(dev, name, cfg, params, n, rng, pts, idx, label)
+               for name, (cfg, params, n) in rigs.items()}
+    # the 4-pose TPS shot on the 16k rig
+    cfg, params, n = rigs["TPS"]
+    rest = results["TPS"]["rest"]
+    shot = rest + 0.03 * rng.standard_normal((4, n, 3)).astype(np.float32)
+    torch.cuda.synchronize()
+    t_shot = time.perf_counter()
+    shot_model, resid, report = batched.fit_frames(rest, shot, cfg, params, device=dev,
+                                                   want_report=True)
+    errors.check_frames(resid, rest, shot, cfg=cfg, report=report)
+    ones = torch.ones(v, device=dev)
+    shot_out, _ = batched.apply_frames(shot_model, pts, torch.zeros(v, device=dev), ones, cfg,
+                                       params)
+    torch.cuda.synchronize()
+    shot_s = time.perf_counter() - t_shot
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"large-rig main path: {wall:.3f} s wall (3 Krylov fits, 3 applies and 3 float64 "
+          f"checks at {v} verts, a 4-pose TPS shot in {shot_s:.3f} s); launches {launches}  "
+          f"[{label}]", flush=True)
+    _check(launches["evaluate_cuda_culled"] == 2 and launches["culled_tables"] == 2,
+           "the QNN and gaussian applies must each launch the culled kernel once")
+    _check(launches["evaluate_cuda_precise"] == 1,
+           "the TPS apply must launch the precise kernel once")
+    _check(launches["evaluate_cuda_precise_frames"] == 1,
+           "the 4-pose shot must take one precise frames launch")
+    _check(launches["evaluate_cuda"] == 0, "no path here takes the dense kernel")
+    back = report.backward_error()
+    rhs = torch.linalg.norm(torch.as_tensor(shot - rest[None]), dim=(1, 2))
+    ratio = (resid.cpu().double() / rhs).tolist()
+    print(f"TPS shot {n} x 4 through fit_frames: per-frame backward error "
+          f"{[f'{b:.3e}' for b in back.tolist()]}, residual / rhs "
+          f"{[f'{r:.3e}' for r in ratio]}; check_frames on the Krylov-CPD route passed  "
+          f"[{label}]")
+    _check(shot_model.w_rbf_lo is None, "a Krylov shot carries lo words")
+    for f in range(4):
+        single, _ = fit_mod.fit(torch.as_tensor(rest, device=dev),
+                                torch.as_tensor(shot[f], device=dev), cfg.solve_view(), params)
+        _check(bool(torch.equal(single.w_rbf, shot_model.w_rbf[f]))
+               and bool(torch.equal(single.w_poly, shot_model.w_poly[f])),
+               f"shot frame {f} differs from its single Krylov fit")
+    # frame 0 against the precise kernel's plain twin and a float64 solve
+    twin = evaluate_precise(cuda_eval.frame_model(shot_model, 0), pts[idx],
+                            RBFKernel.THIN_PLATE, cfg.term).double()
+    disp0 = (shot_out[0, idx] - pts[idx]).double()
+    twin_err = float(torch.max(torch.abs(disp0 - twin)))
+    want = _saddle_field64(shot_model.ctrl, shot_model.eps[0], 0.01, RBFKernel.THIN_PLATE,
+                           torch.as_tensor(shot[0], device=dev) - shot_model.ctrl, pts[idx])
+    err = float(torch.max(torch.abs(disp0 - want)))
+    scale = float(torch.max(torch.abs(want)))
+    _, bound = _krylov_ok("cpd", n, err, scale)
+    print(f"TPS shot frame 0, 4096-vertex subset: vs the plain twin max |d disp| "
+          f"{twin_err:.3e} (tol {PRECISE_POS_TOL:g}); vs a float64 dense solve {err:.3e} = "
+          f"{err / scale:.3e} of scale ({_bound_txt(bound)}); every frame's model equals its "
+          f"single fit bit for bit  [{label}]")
+    _check(bool(torch.isfinite(shot_out).all()) and twin_err <= PRECISE_POS_TOL,
+           "the TPS shot's frames launch disagrees with the plain twin")
+
+    # the dense/Krylov crossover: the same rigs at 8192 and 16384
+    crossover = {}
+    for name in ("QNN", "TPS"):
+        cfg, params, _ = rigs[name]
+        for n in CROSSOVER_N:
+            rest = fibonacci_points(n)
+            deformed = rest + 0.03 * rng.standard_normal((n, 3)).astype(np.float32)
+            for solver in ("direct", "krylov"):
+                c = dataclasses.replace(cfg, solver=solver)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                d = Deformer.fit(rest, deformed, c, params, device=dev)
+                torch.cuda.synchronize()
+                crossover[(name, n, solver)] = time.perf_counter() - t1
+                del d
+                torch.cuda.empty_cache()
+            print(f"crossover {name} at {n}: fit {crossover[(name, n, 'direct')]:.3f} s direct, "
+                  f"{crossover[(name, n, 'krylov')]:.3f} s krylov (host clock, one fit each)  "
+                  f"[{label}]", flush=True)
+    return {"launches": launches, "rigs": {k: {kk: vv for kk, vv in r.items()
+                                               if kk not in ("rest", "deformer")}
+                                           for k, r in results.items()},
+            "shot_s": shot_s, "crossover": crossover}
+
+
+def main_path_drag(dev, label: str) -> dict:
+    """Phase 6e: the interactive drag.  The default config at 1000
+    controls: Deformer.fit_with_plan, then DRAGS marker drags through
+    plan.refit + apply on the 1M sphere (the culled kernel), each refit
+    model bit-equal to Deformer.fit of its pose; a TPS plan at 4096
+    controls (GMRES-IR against stored factors, the precise kernel), the
+    same way; refit against fit in CUDA-event ms; then apply(spatial_perm=)
+    against the natural order on a randomly permuted sphere."""
+    from facedeform_tpu_torch import DeformConfig, DeformParams, Deformer
+    from facedeform_tpu_torch.benchmark import stats, time_cuda
+    from facedeform_tpu_torch.config import RBFKernel, RBFModelType
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points, uv_sphere
+    from facedeform_tpu_torch.ops import cuda_eval, cuda_precise
+    from facedeform_tpu_torch.ops.morton import spatial_order
+
+    rng = np.random.default_rng(11)
+    pts = torch.as_tensor(uv_sphere(1000, 1000).points, device=dev)
+    v = pts.shape[0]
+    fields = ("ctrl", "w_rbf", "w_poly", "eps", "w_rbf_lo", "w_poly_lo")
+
+    def same(a, b):
+        return all(bool(torch.equal(getattr(a, f), getattr(b, f))) for f in fields)
+
+    def event_ms(fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
+    def drags(rest, n_drags):
+        """Marker drags: each moves 10 markers of the last pose by ~0.01."""
+        pose = rest.copy()
+        for _ in range(n_drags):
+            pose = pose.copy()
+            moved = rng.choice(len(rest), 10, replace=False)
+            pose[moved] += 0.01 * rng.standard_normal((10, 3)).astype(np.float32)
+            yield pose
+
+    counters = (cuda_eval.evaluate_cuda, cuda_eval.evaluate_cuda_culled,
+                cuda_eval.control_records, cuda_eval.culled_tables,
+                cuda_precise.evaluate_cuda_precise)
+    out = {}
+    for name, cfg, params, n, n_drags in (
+            ("default", DeformConfig(), DeformParams(), DRAG_N, DRAGS),
+            ("TPS", DeformConfig(model=RBFModelType.KERNEL, kernel=RBFKernel.THIN_PLATE),
+             DeformParams(radius=1.0, lam=0.01), TPS_PLAN_N, TPS_DRAGS)):
+        rest = fibonacci_points(n)
+        _, plan = Deformer.fit_with_plan(rest, next(drags(rest, 1)), cfg, params, device=dev)
+        torch.cuda.synchronize()
+        for fn in counters:
+            fn.launches = 0
+        refit_ms, apply_ms, fit_ms, equal = [], [], [], []
+        t0 = time.perf_counter()
+        for pose in drags(rest, n_drags):
+            d, ms = event_ms(lambda: plan.refit(pose))
+            refit_ms.append(ms)
+            (moved, _), ms = event_ms(lambda: d.apply(pts))
+            apply_ms.append(ms)
+            _check(bool(torch.isfinite(moved).all()), f"{name}: a drag's apply is not finite")
+            ref, ms = event_ms(lambda: Deformer.fit(rest, pose, cfg, params, device=dev))
+            fit_ms.append(ms)
+            equal.append(same(d.model, ref.model))
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in counters}
+        r, a, f = (stats(x) for x in (refit_ms, apply_ms, fit_ms))
+        print(f"drag {name} {n}: {n_drags} drags in {wall:.3f} s wall; refit {r[0]:.4f} ms best, "
+              f"{r[1]:.4f} median; fit of the same poses {f[0]:.4f} ms best, {f[1]:.4f} "
+              f"median ({f[1] / r[1]:.2f}x the refit); apply at {v} verts {a[0]:.4f} ms best, "
+              f"{a[1]:.4f} median (CUDA events); refit == fit bit for bit: {all(equal)}; "
+              f"launches {launches}  [{label}]", flush=True)
+        _check(all(equal), f"{name}: a refit model differs from Deformer.fit of its pose")
+        if cfg.kernel == RBFKernel.THIN_PLATE:
+            _check(launches["evaluate_cuda_precise"] == n_drags,
+                   "each TPS drag's apply must launch the precise kernel once")
+        else:
+            _check(launches["evaluate_cuda_culled"] == n_drags
+                   and launches["culled_tables"] == n_drags,
+                   "each drag's apply must launch the culled kernel once")
+        out[name] = {"refit_ms": r, "fit_ms": f, "apply_ms": a, "launches": launches,
+                     "deformer": d}
+
+    # apply(spatial_perm=) against the natural order of a shuffled sphere
+    d = out["default"].pop("deformer")
+    out["TPS"].pop("deformer")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shuffled = pts[torch.randperm(v, generator=gen, device=dev)].contiguous()
+    sp = spatial_order(shuffled)
+    fns = {
+        "apply, shuffled order": lambda: d.apply(shuffled),
+        "apply(spatial_perm=), shuffled": lambda: d.apply(shuffled, spatial_perm=sp),
+        "apply, the sphere's order": lambda: d.apply(pts),
+        "spatial_order (Morton codes + argsort)": lambda: spatial_order(shuffled),
+        f"gather of {v} rows": lambda: shuffled[sp[0]],
+    }
+    times = {k: stats(t) for k, t in time_cuda(fns).items()}
+    for k, (best, med, spread) in times.items():
+        print(f"time {k}: {best:.4f} ms best, {med:.4f} median, spread {spread * 100:.1f}% at "
+              f"{v} x {DRAG_N}  [{label}]")
+    err = float(torch.max(torch.abs(fns["apply(spatial_perm=), shuffled"]()[0]
+                                    - fns["apply, shuffled order"]()[0])))
+    print(f"apply(spatial_perm=) vs the shuffled order: max |d| {err:.3e} "
+          f"(tol {POS_TOL_DECAYING:g})")
+    _check(err <= POS_TOL_DECAYING, "apply(spatial_perm=) disagrees with the natural order")
+    out["spatial_perm"] = times
+    return out
+
+
 def _ptxas_summary(log: str) -> list:
     """One line per compiled kernel: name<template args>, registers, spills."""
     lines, name = [], None
@@ -2681,6 +3221,12 @@ def main() -> int:
         # the frames eval kernel's timing alone
         time_frames_part(dev, label)
         return 0
+    if "--krylov" in sys.argv[1:]:
+        # the Krylov parity phase and the large-rig and drag main paths alone
+        check_krylov_parity(dev, label)
+        main_path_large_rigs(dev, label)
+        main_path_drag(dev, label)
+        return 0
 
     check_kernels(dev)
     check_pack_kernels(dev)
@@ -2696,8 +3242,23 @@ def main() -> int:
     main_c = main_path_precise(dev, label)
     main_f = main_path_pu(dev, label)
     shot_f = main_path_pu_shot(dev, label)
+    check_krylov_parity(dev, label)
+    large = main_path_large_rigs(dev, label)
+    drag = main_path_drag(dev, label)
     kernels = (time_kernels(main, label) + time_frames(main_b, label)
                + time_precise(main_c, label) + time_pu(main_f, shot_f, label))
+    # the kernels the large-rig and drag paths launched, by path (each
+    # path's counters set to 0 just before it and read just after)
+    paths = {"large rigs": large["launches"],
+             **{f"drag {k}": v["launches"] for k, v in drag.items() if "launches" in v}}
+    counter_of = {"eval_dense": "evaluate_cuda", "eval_culled": "evaluate_cuda_culled",
+                  "eval_records": "control_records", "culled_tables": "culled_tables",
+                  "eval_precise": "evaluate_cuda_precise",
+                  "eval_precise_frames": "evaluate_cuda_precise_frames"}
+    for k in kernels:
+        counter = counter_of.get(k["name"])
+        if counter:
+            k["launches_by_path"] = {p: c[counter] for p, c in paths.items() if c.get(counter)}
     record = benchmark.run_headline()
     print("headline:", json.dumps(record), flush=True)
 

@@ -5,7 +5,14 @@ Same math and public names as the JAX package (which stays the reference):
   DeformConfig / DeformParams  — the node's parameter surface
   Deformer                     — fit(rest_rig, deformed_rig, device=...)
                                  -> apply(points), jacobian(points),
-                                 transform_attrs(points, attrs, weight)
+                                 transform_attrs(points, attrs, weight);
+                                 dense up to 8192 controls, matrix-free
+                                 Krylov past it
+  FitPlan                      — Deformer.fit_with_plan / FitPlan.prepare
+                                 -> refit(pose): a new pose of the same
+                                 rest rig at O(n^2) (the marker drag)
+  models                       — QNN / Multilayer / KernelZoo /
+                                 PartitionOfUnity fronts
   parallel.batched             — the animated shot: fit_frames ->
                                  apply_frames -> transport_frames
   ops.temporal                 — Savitzky-Golay rig smoothing of a shot
@@ -22,7 +29,13 @@ from facedeform_tpu_torch.config import (
     RBFKernel,
     RBFModelType,
 )
-from facedeform_tpu_torch.deformer import Deformer
+from facedeform_tpu_torch.deformer import Deformer, FitPlan
+from facedeform_tpu_torch.models import (
+    KernelZooDeformModel,
+    MultilayerDeformModel,
+    PartitionOfUnityModel,
+    QNNDeformModel,
+)
 from facedeform_tpu_torch.ops.fit import RBFModel
 from facedeform_tpu_torch.ops.solve import SolveReport
 
@@ -30,7 +43,12 @@ __all__ = [
     "DeformConfig",
     "DeformParams",
     "Deformer",
+    "FitPlan",
+    "KernelZooDeformModel",
+    "MultilayerDeformModel",
+    "PartitionOfUnityModel",
     "PolyTerm",
+    "QNNDeformModel",
     "RBFKernel",
     "RBFModel",
     "RBFModelType",

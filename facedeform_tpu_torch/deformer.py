@@ -4,7 +4,9 @@ facedeform_tpu/deformer.py).
 The reference's eval loop, per mesh point: skip if the captured d2 exceeds
 radius^2, disp = rbfcalc(P), optional tangent projection, falloff =
 (1 - min(d2/r^2, 1))^rate, write fd_falloff and P += falloff * disp,
-restricted to the optional point group.
+restricted to the optional point group.  apply_fn is that step as a
+plain function; FitPlan is the pose-independent half of a dense fit (the
+interactive marker drag: factor once, refit each pose in O(n^2)).
 """
 
 from __future__ import annotations
@@ -20,7 +22,6 @@ from facedeform_tpu_torch.ops import jacobian as jac_mod
 from facedeform_tpu_torch.ops.evaluate import evaluate
 from facedeform_tpu_torch.ops.falloff import falloff_weight
 from facedeform_tpu_torch.ops.fit import RBFModel
-from facedeform_tpu_torch.ops.kernels import kernel_is_pd
 from facedeform_tpu_torch.ops.precise_eval import GROWING_KERNELS, evaluate_precise
 from facedeform_tpu_torch.ops.solve import SolveReport
 from facedeform_tpu_torch.ops.tangent import project_to_tangents
@@ -31,6 +32,30 @@ _BACKENDS = ("dense", "dense_precise", "cuda", "cuda_culled", "cuda_precise")
 # The culled kernel needs enough vertex blocks for coherent bboxes to pay
 # for the slab tests (the JAX package's measured crossover).
 _CULL_MIN_VERTS = 4096
+
+
+def _apply_plain(evaluate_fn, model, points, dist2, frame, group_mask, cfg, params):
+    """The plain deform step with the displacement from evaluate_fn."""
+    params = params.clamped()
+    disp = evaluate_fn(model, points, fit_mod.effective_kernel(cfg), cfg.term)
+    if cfg.tangent and frame is not None:
+        disp = project_to_tangents(*frame, disp)
+    w, active = falloff_weight(
+        dist2, params.radius, params.falloffrate, strict_parity=cfg.strict_parity)
+    if group_mask is not None:
+        active = active & group_mask
+    w = torch.where(active, w, torch.zeros_like(w))
+    return points + disp * w[:, None], w
+
+
+def apply_fn(model: RBFModel, points, dist2, frame, group_mask, cfg: DeformConfig,
+             params: DeformParams) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pure deformation step on the model's device, the plain f32 field:
+    (new_points (V, 3), fd_falloff (V,)).  frame (u, v, n) projects when
+    cfg.tangent; group_mask (V,) bool restricts; either may be None."""
+    points = torch.as_tensor(points, dtype=torch.float32, device=model.device)
+    dist2 = torch.as_tensor(dist2, dtype=torch.float32, device=model.device)
+    return _apply_plain(evaluate, model, points, dist2, frame, group_mask, cfg, params)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,12 +77,18 @@ class Deformer:
         check: bool = True,
         confidence=None,
         device="cuda",
+        want_plan: bool = False,
     ) -> "Deformer":
         """Solve the RBF system mapping rest_ctrl -> deformed_ctrl on `device`.
 
+        Up to 8192 controls (solver "auto" or "direct") the system is
+        assembled and LU-solved; past it, or with solver="krylov", it is
+        solved matrix-free (GMRES for QNN, PMINRES for MULTILAYER/KERNEL).
         `confidence` ((N,) per-marker quality in (0, 1]) weights the ridge
-        per marker (ridge families only).  Raises ShapeMismatchError on a
-        rig count mismatch and SolveFailedError on solver blow-up.
+        per marker (ridge families only).  want_plan=True returns
+        (deformer, FitPlan) on the dense route (see fit_with_plan).  Raises
+        ShapeMismatchError on a rig count mismatch and SolveFailedError on
+        solver blow-up, at the backward-error threshold of the route taken.
         """
         if cfg.solver == "pu":
             # the PU model is a different artifact (patch tensors, not an
@@ -77,20 +108,49 @@ class Deformer:
         n = rest_ctrl.shape[0]
         if confidence is not None:
             confidence = fit_mod.confidence_clipped(confidence, n, device)
-        model, report = fit_mod.fit(
-            rest_ctrl, deformed_ctrl, cfg.solve_view(), params, confidence=confidence
-        )
+        if want_plan:
+            model, report, factors = fit_mod.fit_with_factors(
+                rest_ctrl, deformed_ctrl, cfg.solve_view(), params, confidence=confidence)
+        else:
+            model, report = fit_mod.fit(
+                rest_ctrl, deformed_ctrl, cfg.solve_view(), params, confidence=confidence)
         if check:
             # the CPD-kernel Krylov route converges to the f32 Krylov noise
             # floor, not the refined-LU floor: match the route fit() took
-            kernel = fit_mod.effective_kernel(cfg)
-            cpd_krylov = fit_mod.uses_krylov(cfg, n) and not kernel_is_pd(kernel)
             errors.check_solve(
                 report,
-                rtol=errors.KRYLOV_CPD_BACKWARD_RTOL if cpd_krylov
+                rtol=errors.KRYLOV_CPD_BACKWARD_RTOL if fit_mod.krylov_cpd(cfg, n)
                 else errors.SOLVE_BACKWARD_RTOL,
             )
-        return cls(model=model, cfg=cfg, params=params, report=report)
+        deformer = cls(model=model, cfg=cfg, params=params, report=report)
+        if want_plan:
+            return deformer, FitPlan(factors=factors, cfg=cfg, params=params)
+        return deformer
+
+    @classmethod
+    def fit_with_plan(
+        cls,
+        rest_ctrl,
+        deformed_ctrl,
+        cfg: DeformConfig = DeformConfig(),
+        params: DeformParams = DeformParams(),
+        check: bool = True,
+        confidence=None,
+        device="cuda",
+    ) -> tuple["Deformer", "FitPlan"]:
+        """Deformer.fit that also returns the pose-independent FitPlan: its
+        factors are the fit's own (no second factorization), and later
+        poses of the same rest rig go through plan.refit() at O(n^2).
+        Dense route only: gate with FitPlan.supports(cfg, n)."""
+        if not FitPlan.supports(cfg, len(rest_ctrl)):
+            raise ValueError(
+                "fit_with_plan needs the dense route (plans cache the dense "
+                "factorization): this cfg/rig routes through "
+                f"{'PU' if cfg.solver == 'pu' else 'Krylov'} - gate with "
+                "FitPlan.supports(cfg, n)"
+            )
+        return cls.fit(rest_ctrl, deformed_ctrl, cfg, params, check=check,
+                       confidence=confidence, device=device, want_plan=True)
 
     def _points(self, points) -> torch.Tensor:
         return torch.as_tensor(points, dtype=torch.float32, device=self.model.device)
@@ -147,6 +207,7 @@ class Deformer:
         frame=None,
         group_mask=None,
         backend: str = "auto",
+        spatial_perm=None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Deform points on the model's device; returns (new_points (V, 3),
         fd_falloff (V,)).
@@ -162,8 +223,15 @@ class Deformer:
         "dense_precise" path for growing kernels and "dense" otherwise.
         "dense", "dense_precise", "cuda", "cuda_culled" and "cuda_precise"
         force a path ("dense"/"cuda" on a growing kernel evaluate the f32
-        field, as in the JAX package).
+        field, as in the JAX package).  spatial_perm: optional (perm,
+        inv_perm) from ops.morton.spatial_order(points): the points, dist2,
+        frame and group mask are gathered into Z-order, evaluated (the
+        culled kernel's slabs then hold neighbours) and the result is
+        scattered back; each gather of 1M rows is device work the caller
+        should amortize (a persistent mesh is better sorted once).
         """
+        if spatial_perm is not None:
+            return self._apply_sorted(points, dist2, frame, group_mask, backend, spatial_perm)
         points = self._points(points)
         dev = points.device
         v = points.shape[0]
@@ -197,20 +265,11 @@ class Deformer:
                 f"unknown backend {backend!r}; expected 'auto', 'dense', "
                 "'dense_precise', 'cuda', 'cuda_culled' or 'cuda_precise'"
             )
-        params = self.params.clamped()
         if backend in ("dense", "dense_precise"):
             fn = evaluate_precise if backend == "dense_precise" else evaluate
-            disp = fn(self.model, points, kernel, self.cfg.term)
-            if frame is not None:
-                disp = project_to_tangents(*frame, disp)
-            w, active = falloff_weight(
-                dist2, params.radius, params.falloffrate,
-                strict_parity=self.cfg.strict_parity,
-            )
-            if group_mask is not None:
-                active = active & group_mask
-            w = torch.where(active, w, torch.zeros_like(w))
-            return points + disp * w[:, None], w
+            return _apply_plain(fn, self.model, points, dist2, frame, group_mask,
+                                self.cfg, self.params)
+        params = self.params.clamped()
         gate = (
             group_mask.float() if group_mask is not None
             else torch.ones(v, dtype=torch.float32, device=dev)
@@ -226,3 +285,84 @@ class Deformer:
             # the gate zeroes the displacement; also pin positions exactly
             new_pts = torch.where(group_mask[:, None], new_pts, points)
         return new_pts, w
+
+    def _apply_sorted(self, points, dist2, frame, group_mask, backend, spatial_perm):
+        """apply() in the Z-order of spatial_perm, scattered back."""
+        points = self._points(points)
+        perm, inv = (torch.as_tensor(p, dtype=torch.int64, device=points.device)
+                     for p in spatial_perm)
+
+        def gather(t, dtype):
+            return None if t is None else torch.as_tensor(
+                t, dtype=dtype, device=points.device)[perm]
+
+        new_s, w_s = self.apply(
+            points[perm], dist2=gather(dist2, torch.float32),
+            frame=None if frame is None else tuple(gather(f, torch.float32) for f in frame),
+            group_mask=gather(group_mask, torch.bool), backend=backend)
+        return new_s[inv], w_s[inv]
+
+
+@dataclasses.dataclass(frozen=True)
+class FitPlan:
+    """The pose-independent half of a dense fit: the interactive-drag
+    artifact.
+
+    The system depends on the rest rig and the solve params only; the
+    deformed rig enters through the right-hand side.  A plan holds the
+    assembled and LU-factored per-layer systems (ops/fit.FitFactors), so
+    re-posing the same rest rig (an artist dragging markers, a tracked
+    shot streaming poses) costs O(n^2) triangular solves and refinement
+    instead of the O(n^3) factorization.  refit() returns a Deformer whose
+    model equals Deformer.fit's of the same pose bit for bit.  Obtain one
+    from Deformer.fit_with_plan or FitPlan.prepare.  Dense route only (PU
+    rigs plan per patch, Krylov fits are matrix-free): gate with
+    FitPlan.supports(cfg, n).
+    """
+
+    factors: fit_mod.FitFactors
+    cfg: DeformConfig
+    params: DeformParams
+
+    @staticmethod
+    def supports(cfg: DeformConfig, n: int) -> bool:
+        """Whether (cfg, n-control rig) takes the dense factorization a
+        plan caches."""
+        return cfg.solver != "pu" and not fit_mod.uses_krylov(cfg, n)
+
+    @classmethod
+    def prepare(
+        cls,
+        rest_ctrl,
+        cfg: DeformConfig = DeformConfig(),
+        params: DeformParams = DeformParams(),
+        confidence=None,
+        device="cuda",
+    ) -> "FitPlan":
+        """Assemble and factor on `device` without a pose (ops/fit.prepare)."""
+        rest_ctrl = torch.as_tensor(rest_ctrl, dtype=torch.float32, device=device)
+        if confidence is not None:
+            confidence = fit_mod.confidence_clipped(confidence, rest_ctrl.shape[0], device)
+        factors = fit_mod.prepare(rest_ctrl, cfg.solve_view(), params, confidence=confidence)
+        return cls(factors=factors, cfg=cfg, params=params)
+
+    @property
+    def num_controls(self) -> int:
+        return int(self.factors.ctrl.shape[0])
+
+    def refit(self, deformed_ctrl, check: bool = True) -> Deformer:
+        """Re-solve for a new pose of the planned rest rig, on the plan's
+        device: ShapeMismatchError on a pose of another rig size,
+        SolveFailedError through errors.check_solve at the dense route's
+        threshold."""
+        ctrl = self.factors.ctrl
+        deformed_ctrl = torch.as_tensor(deformed_ctrl, dtype=torch.float32, device=ctrl.device)
+        if deformed_ctrl.shape != ctrl.shape:
+            raise errors.ShapeMismatchError(
+                f"planned rest rig has {tuple(ctrl.shape)} points but the pose has "
+                f"{tuple(deformed_ctrl.shape)}"
+            )
+        model, report = fit_mod.refit(self.factors, deformed_ctrl, self.cfg.solve_view())
+        if check:
+            errors.check_solve(report, rtol=errors.SOLVE_BACKWARD_RTOL)
+        return Deformer(model=model, cfg=self.cfg, params=self.params, report=report)

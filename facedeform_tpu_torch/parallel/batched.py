@@ -74,7 +74,8 @@ def fit_frames(
     params: DeformParams = DeformParams(),
     confidence=None,
     device="cuda",
-) -> tuple[RBFModel, torch.Tensor]:
+    want_report: bool = False,
+):
     """Solve F frames at once on `device`: (N, 3), (F, N, 3) -> (stacked
     RBFModel, per-frame residual norms (F,)).
 
@@ -84,8 +85,12 @@ def fit_frames(
     stacked) while its temporaries fit vmap_fit_hbm_budget, the shared
     factorization (fit_mod.fit_frames_dense) above it, which drops the lo
     words of decaying kernels.  For growing kernels the two routes run the
-    same solve and give the same model, lo words included.  Check the
-    residuals with utils.errors.check_frames."""
+    same solve and give the same model, lo words included.  Krylov-size
+    rigs (fit_mod.uses_krylov) always take the per-pose route: one
+    matrix-free fit() per pose, no lo words.  want_report adds a third
+    return, the per-frame SolveReport of each frame's worst layer.  Check
+    the residuals with utils.errors.check_frames (on the Krylov route of a
+    CPD kernel it needs cfg= and that report=)."""
     rest_ctrl = _f32(rest_ctrl, device)
     deformed_frames = _f32(deformed_frames, device)
     if confidence is not None:
@@ -94,11 +99,13 @@ def fit_frames(
     if not fit_mod.uses_krylov(cfg, n) and (
         _vmap_fit_bytes(n + cfg.n_poly, f) > vmap_fit_hbm_budget
     ):
-        model, resid, _ = fit_mod.fit_frames_dense(
-            rest_ctrl, deformed_frames, cfg, params, confidence=confidence)
-        return model, resid
+        out = fit_mod.fit_frames_dense(
+            rest_ctrl, deformed_frames, cfg, params, confidence=confidence,
+            want_report=want_report)
+        return out[:2] + out[3:]
     return fit_mod.fit_frames_per_pose(
-        rest_ctrl, deformed_frames, cfg, params, confidence=confidence)
+        rest_ctrl, deformed_frames, cfg, params, confidence=confidence,
+        want_report=want_report)
 
 
 def apply_frames(

@@ -82,28 +82,67 @@ def check_solve(report, rtol: float = SOLVE_BACKWARD_RTOL) -> None:
         )
 
 
-def check_frames(resid_norms, rest_ctrl, frames) -> None:
-    """Per-frame health check of a batched sequence fit (dense route).
+def _frame_list(idx) -> str:
+    shown = ", ".join(str(i) for i in idx[:8])
+    return shown + (f" (+{len(idx) - 8} more)" if len(idx) > 8 else "")
 
-    parallel.batched.fit_frames returns per-frame residual norms only, so
-    this is check_solve's no-scale test frame by frame: the saddle RHS is
-    the displacement columns over zero tail rows, so ||rhs_f|| is
-    ||frames_f - rest||_F.  Raises SolveFailedError naming the bad frames,
-    so a degenerate rig never ships a NaN model stack."""
+
+def check_frames(resid_norms, rest_ctrl, frames, cfg=None, report=None) -> None:
+    """Per-frame health check of a batched sequence fit.
+
+    parallel.batched.fit_frames returns per-frame residual norms, so on
+    the dense route this is check_solve's no-scale test frame by frame:
+    the saddle RHS is the displacement columns over zero tail rows, so
+    ||rhs_f|| is ||frames_f - rest||_F.  Raises SolveFailedError naming
+    the bad frames, so a degenerate rig never ships a NaN model stack.
+
+    cfg (the fit's config) and report (fit_frames(..., want_report=True)'s
+    per-frame SolveReport) serve the Krylov route of a conditionally PD
+    kernel (ops/fit.krylov_cpd(cfg, n), Deformer.fit's predicate), which
+    converges to the f32 Krylov noise floor: there a healthy frame's
+    residual may exceed 1e-3 of its rhs, so each frame is judged as
+    check_solve judges one such pose, on its backward error (and each
+    column's) at KRYLOV_CPD_BACKWARD_RTOL.  The JAX package's check_frames
+    has no such route and rejects a healthy 16k-control TPS shot.  Any
+    other cfg keeps the dense test."""
+    from facedeform_tpu_torch.ops.fit import krylov_cpd
+
     r = torch.as_tensor(resid_norms).detach().double().cpu().reshape(-1)
     rest = torch.as_tensor(rest_ctrl).detach().double().cpu()
+    if cfg is not None and krylov_cpd(cfg, rest.shape[0]):
+        if report is None:
+            raise ValueError(
+                "check_frames on the Krylov route of a conditionally PD kernel "
+                "judges each frame's backward error: pass report= "
+                "(fit_frames(..., want_report=True))")
+        scale = torch.as_tensor(report.scale_norm).detach().double().cpu().reshape(-1)
+        back = r / torch.clamp(scale, min=1e-30)
+        col = torch.zeros_like(r)
+        if report.col_backward is not None:
+            col = torch.as_tensor(report.col_backward).detach().double().cpu()
+            col = torch.amax(torch.nan_to_num(col.reshape(r.shape[0], -1), nan=math.inf), dim=1)
+        rtol = KRYLOV_CPD_BACKWARD_RTOL
+        bad = ~torch.isfinite(r) | ~torch.isfinite(col) | (back > rtol) | (col > rtol)
+        if bool(bad.any()):
+            idx = torch.nonzero(bad).reshape(-1).tolist()
+            worst = idx[int(torch.argmax(torch.nan_to_num(back[idx], nan=math.inf)))]
+            raise SolveFailedError(
+                f"sequence RBF solve failed on frame(s) {_frame_list(idx)}: frame "
+                f"{worst} backward error {float(back[worst]):.3e} (worst column "
+                f"{float(col[worst]):.3e}, rtol {rtol:g}; residual {float(r[worst]):.3e}) "
+                "— singular or degenerate system (duplicate/coincident markers?)"
+            )
+        return
     rhs = torch.linalg.norm(
         torch.as_tensor(frames).detach().double().cpu() - rest[None], dim=(1, 2))
     bad = ~torch.isfinite(r) | (
         (rhs > 0) & (r > SOLVE_RESIDUAL_RTOL * torch.clamp(rhs, min=1e-30)))
     if bool(bad.any()):
         idx = torch.nonzero(bad).reshape(-1).tolist()
-        shown = ", ".join(str(i) for i in idx[:8])
-        more = f" (+{len(idx) - 8} more)" if len(idx) > 8 else ""
         finite = torch.where(torch.isfinite(r[idx]), r[idx], torch.full_like(r[idx], math.inf))
         worst = idx[int(torch.argmax(finite))]
         raise SolveFailedError(
-            f"sequence RBF solve failed on frame(s) {shown}{more}: "
+            f"sequence RBF solve failed on frame(s) {_frame_list(idx)}: "
             f"frame {worst} residual {float(r[worst]):.3e} vs rhs "
             f"{float(rhs[worst]):.3e} (rtol {SOLVE_RESIDUAL_RTOL:g}) — singular "
             "or ill-conditioned system"

@@ -112,14 +112,16 @@ def test_degenerate_rig_fails_solve():
 
 
 def test_growing_kernels_and_krylov_not_ported():
-    """Growing kernels (once not ported, hence the name) fit and apply
-    through the float64 path; the Krylov route still raises."""
+    """Growing kernels and the Krylov route (both once not ported, hence
+    the name) fit: growing kernels apply through the float64 path, the
+    Krylov route gives a model without lo words."""
     rest, deformed, pts, dist2, mask, _ = _scene(n=40, v=50)
     mq = jcfg.DeformConfig(model=M.KERNEL, kernel=K.MULTIQUADRIC)
     own = Deformer.fit(rest, deformed, *_port(mq, jcfg.DeformParams()), device="cpu")
     assert own.model.w_rbf_lo is not None
-    with pytest.raises(NotImplementedError, match="slice F"):
-        Deformer.fit(rest, deformed, DeformConfig(solver="krylov"), device="cpu")
+    kd = Deformer.fit(rest, deformed, DeformConfig(solver="krylov"), device="cpu")
+    assert kd.model.w_rbf_lo is None and kd.model.w_poly_lo is None
+    assert float(kd.report.backward_error()) <= errors.SOLVE_BACKWARD_RTOL
     # a JAX-fitted growing-kernel model carries over and evaluates as
     # JAX's auto route (dense_precise) does
     jd = jdef.Deformer.fit(rest, deformed, mq, jcfg.DeformParams())

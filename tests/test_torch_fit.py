@@ -122,10 +122,19 @@ def test_growing_kernel_fit_not_ported(kernel):
 
 
 def test_krylov_route_not_ported():
-    rest, deformed, _ = _rig(n=20)
-    cfg = convert.config_from_fields(dataclasses.asdict(jcfg.DeformConfig(solver="krylov")))
-    with pytest.raises(NotImplementedError, match="slice F"):
-        tfit.fit(torch.as_tensor(rest), torch.as_tensor(deformed), cfg)
+    """The Krylov route (once not ported, hence the name) fits as the JAX
+    package's does: no lo words, the field within the JAX package's
+    Krylov-vs-direct bound of JAX's Krylov field, the same routing."""
+    rest, deformed, probes = _rig(n=20)
+    jc = jcfg.DeformConfig(solver="krylov")
+    cfg = convert.config_from_fields(dataclasses.asdict(jc))
+    tm, tr = tfit.fit(torch.as_tensor(rest), torch.as_tensor(deformed), cfg)
+    jm, _ = jfit.fit(jnp.asarray(rest), jnp.asarray(deformed), jc)
+    assert tm.w_rbf_lo is None and jm.w_rbf_lo is None
+    assert float(tr.backward_error()) <= errors.SOLVE_BACKWARD_RTOL
+    want = np.asarray(jeval.evaluate(jm, jnp.asarray(probes), jcfg.RBFKernel.GAUSSIAN, jc.term))
+    got = teval.evaluate(tm, torch.as_tensor(probes), jcfg.RBFKernel.GAUSSIAN, jc.term).numpy()
+    assert np.abs(got - want).max() < 5e-5 + 1e-3 * np.abs(want).max()
     assert tfit.uses_krylov(cfg, 20) == jfit.uses_krylov(cfg, 20)
     auto = dataclasses.replace(cfg, solver="auto")
     for n in (8192, 8193):

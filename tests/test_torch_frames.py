@@ -354,8 +354,9 @@ def test_deform_frames_matches_jax():
 
 
 def test_growing_kernels_and_mesh_not_ported():
-    """Growing-kernel shots (once not ported, hence the name) fit and apply
-    through the float64 path; mesh= and the Krylov route still raise."""
+    """Growing-kernel shots and Krylov-size shots (both once not ported,
+    hence the name) fit: growing kernels apply through the float64 path,
+    a Krylov shot is one Krylov fit per pose; mesh= still raises."""
     rest, frames = _shot(n=30, n_frames=2)
     pts, dist2, gate, _ = _mesh(v=50)
     mq = jcfg.DeformConfig(model=M.KERNEL, kernel=K.MULTIQUADRIC)
@@ -377,9 +378,12 @@ def test_growing_kernels_and_mesh_not_ported():
         tbatched.apply_frames(model, pts, dist2, gate, cfg, _port_params(), mesh=object())
     with pytest.raises(NotImplementedError, match="slice H"):
         tbatched.transport_frames(model, pts, (pts,), gate, cfg, ("vector",), mesh=object())
-    with pytest.raises(NotImplementedError, match="slice F"):
-        tbatched.fit_frames(rest, frames, dataclasses.replace(cfg, solver="krylov"),
-                            device="cpu")
+    krylov = dataclasses.replace(cfg, solver="krylov")
+    km, kresid = tbatched.fit_frames(rest, frames, krylov, device="cpu")
+    assert km.w_rbf_lo is None
+    for f in range(frames.shape[0]):
+        single, rep = tfit.fit(torch.as_tensor(rest), torch.as_tensor(frames[f]), krylov)
+        assert torch.equal(km.w_rbf[f], single.w_rbf) and torch.equal(kresid[f], rep.residual_norm)
 
 
 @pytest.mark.parametrize("route", ["per-pose", "shared"])

@@ -19,6 +19,8 @@ def test_import_loads_no_jax_and_builds_nothing(tmp_path):
         "import facedeform_tpu_torch.ops.cuda_precise as cp\n"
         "import facedeform_tpu_torch.ops.krylov, facedeform_tpu_torch.ops.precise_eval\n"
         "import facedeform_tpu_torch.ops.pu, facedeform_tpu_torch.ops.cuda_pu as cpu_\n"
+        "import facedeform_tpu_torch.models\n"
+        "from facedeform_tpu_torch import FitPlan, QNNDeformModel\n"
         "jax = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'facedeform_tpu')]\n"
         "assert not jax, jax\n"
         "assert ce._lib is None\n"
