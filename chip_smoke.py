@@ -113,7 +113,32 @@
    way; refit against fit in CUDA-event ms; then apply(spatial_perm=)
    against the natural order of a randomly permuted 1M sphere, with the
    Morton sort and the 1M-row gather timed alone;
-7. times fit, each kernel and its plain version (the dense and culled
+8. runs the capture chain, the reference SOP's cook order at the main
+   path's mesh (1,000,002 vertices): 8a capture with the main path's 1000
+   Fibonacci markers (class = octant, maxedges 32, radius 0.1), dofalloff
+   euclidean to points, to triangles (the markers' convex hull, 1996
+   triangles) and geodesic; dist2 against a float64 brute force on the
+   card, the native geodesic against scipy's dijkstra, the native flood's
+   islands against the numpy fallback's, the native library required;
+   8b Deformer.fit (default config, 1000 controls, falloff radius 0.05,
+   under the markers' covering radius) and apply(dist2=) on "auto"
+   (culled) and backend="cuda" (dense), and again with a group_mask parsed
+   by grouppattern ("captured ^south"), against the plain twin; vertices
+   beyond the radius must exist and have no weight, and inactive and
+   off-group vertices stay unmoved bit for bit; 8c DBSE with 52
+   bump blendshapes: lstsq and robust weights (2% outliers) recover known
+   weights, parity weights against a float64 twin (the host packed QR
+   timed on a subset first and the parity route cut to the largest vertex
+   count under 30 s of it), lstsq batched over slice B's 8-pose shot
+   against per-frame calls, morph_apply on 8b's gated output against its
+   float64 formula; 8d the bake of that shot (fit_blendshapes, rank 8)
+   against a float64 eigh, blendshape_meshes -> build_model giving back its
+   weight curves; 8e select_markers of 2000 from 50,000 (the residual
+   trace falling with k), reduce_rig, fit_reduced -> a reduced Deformer
+   applied at 1M, and loocv.autotune at 2000 controls with its Rippa
+   errors against 20 float64 leave-one-out refits on the card; launch
+   counters read around it (#1 and #2 must run);
+9. times fit, each kernel and its plain version (the dense and culled
    kernels also alone, by the profiler, and the culled kernel's computed
    against needed pairs), the frames kernel (also alone, by the profiler,
    and its packing kernel against its twin) against 8 dense launches,
@@ -126,9 +151,9 @@
    1M x 30k and 1M x 20k x 8 frames with the pairs it computes against
    the pairs it needs, the PU fits and host plan builds, and profiles of
    the 30k PU fit and the PU kernel (facedeform_tpu_torch.benchmark);
-8. prints a kernels JSON line (per kernel its time, its plain version's,
+10. prints a kernels JSON line (per kernel its time, its plain version's,
    its bound from this run's inputs and which of bytes or operations binds
-   it, the launches of phases 6d and 6e by path, library_ms null: no single PyTorch call computes an RBF or PU
+   it, the launches of phases 6d, 6e and 8 by path, library_ms null: no single PyTorch call computes an RBF or PU
    field; the dense and culled kernels also their time alone, the culled
    kernel the pairs it computed, counted on the card, over the pairs it
    needs; the frames kernel its time alone, the larger of its tensor-core
@@ -144,7 +169,7 @@ kernels and --frames the frames eval kernel (1M x 1k x 8 and F = 1, 2, 16,
 17, 32; apply_frames per frame at F = 8 to 33) at their main-path shapes,
 each through entry points a parent commit has too, so that a parent
 checkout (the script copied into it) is timed by the same code; --krylov
-runs phases 6c, 6d and 6e alone.
+runs phases 6c, 6d and 6e alone, --capture phase 8 alone.
 """
 
 from __future__ import annotations
@@ -3167,6 +3192,499 @@ def main_path_drag(dev, label: str) -> dict:
     return out
 
 
+# Phase 8, the capture chain: the reference SOP's cook order at the main
+# path's mesh.  Capture rig: the main path's 1000 Fibonacci markers, class
+# = octant, maxedges 32, radius 0.1; DBSE: 52 blendshapes (the ARKit face
+# rig's count), normal bumps of radius 0.2 and amplitude 0.05; the rig
+# tools at the JAX package's own example sizes (select 2000 of 50,000,
+# decimate.py:20-21) and a 2000-control LOOCV rig.
+CAPTURE_MARKERS, CAPTURE_MAXEDGES, CAPTURE_RADIUS = 1000, 32, 0.1
+# 8b's falloff radius: under the markers' covering radius (~0.07 on the
+# unit sphere), so the capture distances freeze a share of the vertices
+GATE_RADIUS = 0.05
+CAPTURE_RTOL, CAPTURE_ATOL = 1e-5, 1e-6   # dist2 vs float64 (tests/test_capture.py)
+GEODESIC_RTOL = 1e-5                      # native Dijkstra vs scipy's
+DBSE_SHAPES, DBSE_BUMP_RADIUS, DBSE_BUMP_AMP = 52, 0.2, 0.05
+DBSE_W_TOL = 1e-4                         # weights and reconstruction (tests/test_dbse.py)
+DBSE_PARITY_RTOL, DBSE_PARITY_ATOL = 1e-4, 1e-5
+DBSE_BATCHED_TOL = 1e-6                   # batched vs per-frame weights
+DBSE_OUTLIER_FRAC = 0.02
+MORPH_TOL = 1e-5                          # morph_apply vs its float64 formula
+PARITY_HOST_LIMIT_S = 30.0                # the packed QR's host time at full width
+BAKE_SV_RTOL = 1e-4                       # bake singular values vs float64 (tests/test_blendshapes.py)
+DECIMATE_N, DECIMATE_K = 50_000, 2000
+LOOCV_N, LOOCV_REFITS, LOOCV_RTOL = 2000, 20, 1e-4
+
+
+def _octants(x):
+    return ((x[:, 0] > 0).astype(np.int32) + 2 * (x[:, 1] > 0).astype(np.int32)
+            + 4 * (x[:, 2] > 0).astype(np.int32))
+
+
+def _timed(fn, dev):
+    """(result, host seconds): the host clock around fn and a synchronize
+    (host steps, and device steps where they end in a host copy)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _within(got, want, rtol, atol) -> float:
+    """max of |got - want| / (atol + rtol |want|): <= 1 passes."""
+    return float(torch.max(torch.abs(got.double() - want) / (atol + rtol * torch.abs(want))))
+
+
+def _min_sqdist64_points(p, ctrl, chunk=1 << 22):
+    """float64 brute force: min over targets of exact squared distances."""
+    c = ctrl.double()
+    step = max(1, chunk // c.shape[0])
+    return torch.cat([((q.double()[:, None] - c[None]) ** 2).sum(-1).amin(1)
+                      for q in torch.split(p, step)])
+
+
+def _min_sqdist64_triangles(p, tris, chunk=1 << 21):
+    """float64 brute force, written apart from the port's closed form: the
+    distance to the plane where the projection falls inside the triangle
+    (same-side tests), else the least distance to the three edges."""
+    t = tris.double()
+    a, b, c = t[:, 0], t[:, 1], t[:, 2]
+    n = torch.linalg.cross(b - a, c - a)
+    nn = (n * n).sum(-1)
+
+    def seg2(q, s0, s1):
+        e = s1 - s0
+        u = torch.clamp(((q - s0) * e).sum(-1) / (e * e).sum(-1), 0.0, 1.0)
+        d = q - (s0 + u[..., None] * e)
+        return (d * d).sum(-1)
+
+    out = []
+    for q in torch.split(p, max(1, chunk // t.shape[0])):
+        q = q.double()[:, None]                                   # (C, 1, 3)
+        h = ((q - a) * n).sum(-1)                                 # (C, T)
+        inside = ((torch.linalg.cross((b - a)[None], q - a) * n).sum(-1) >= 0) \
+            & ((torch.linalg.cross((c - b)[None], q - b) * n).sum(-1) >= 0) \
+            & ((torch.linalg.cross((a - c)[None], q - c) * n).sum(-1) >= 0)
+        edge = torch.minimum(torch.minimum(seg2(q, a, b), seg2(q, b, c)), seg2(q, c, a))
+        out.append(torch.where(inside, h * h / nn, edge).amin(1))
+    return torch.cat(out)
+
+
+def _bump_shapes(points, n, seed):
+    """n blendshapes: smooth normal bumps at seeded sites on the sphere."""
+    rng = np.random.default_rng(seed)
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points
+
+    sites = fibonacci_points(4 * n)[rng.choice(4 * n, n, replace=False)]
+    normal = points / np.linalg.norm(points, axis=1, keepdims=True)
+    return [(points + DBSE_BUMP_AMP * np.exp(-np.sum((points - s) ** 2, -1)
+                                             / DBSE_BUMP_RADIUS ** 2)[:, None] * normal
+             ).astype(np.float32) for s in sites]
+
+
+def _shot_b(pts, dev):
+    """Slice B's 8-pose shot (phase 5's rig recipe) through fit_frames +
+    apply_frames on pts, without capture or tangent frame: (8, V, 3)."""
+    from facedeform_tpu_torch import DeformConfig, DeformParams
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points
+    from facedeform_tpu_torch.ops import temporal
+    from facedeform_tpu_torch.parallel import batched
+
+    rng = np.random.default_rng(0)
+    rest = fibonacci_points(1000)
+    raw = np.stack([rest + 0.05 * rng.standard_normal((1000, 3)).astype(np.float32)
+                    for _ in range(8)])
+    frames = temporal.smooth_frames(raw, window=5)
+    cfg, params = DeformConfig(), DeformParams()
+    model, _ = batched.fit_frames(rest, frames, cfg, params, device=dev)
+    v = pts.shape[0]
+    out, _ = batched.apply_frames(model, pts, torch.zeros(v, device=dev),
+                                  torch.ones(v, device=dev), cfg, params)
+    return out
+
+
+def main_path_capture(dev, label: str, n_side: int = 1000, decimate_n: int = DECIMATE_N,
+                      decimate_k: int = DECIMATE_K, loocv_n: int = LOOCV_N) -> dict:
+    """Phase 8: the capture chain, the reference SOP's cook order at the
+    main path's mesh, uv_sphere(n_side, n_side) (1,000,002 vertices):
+    8a capture (KD-tree seeds, the per-class flood, euclidean distances to
+    points and to triangles on the card, geodesic on the host); 8b
+    Deformer.fit + apply(dist2=) on "auto" and backend="cuda", and again
+    with a group_mask parsed by grouppattern; 8c DBSE weights (lstsq,
+    robust, parity, batched) and morph_apply; 8d the blendshape bake;
+    8e select_markers / reduce_rig / fit_reduced and LOOCV autotune.
+    Launch counters are set to 0 just before and read just after."""
+    import scipy.spatial
+
+    from facedeform_tpu_torch import DeformConfig, DeformParams, Deformer, native
+    from facedeform_tpu_torch.capture import flood, geodesic
+    from facedeform_tpu_torch.capture.capture import ProximityCapture
+    from facedeform_tpu_torch.geometry.mesh import Mesh
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points, uv_sphere
+    from facedeform_tpu_torch.geometry.topology import mesh_adjacency
+    from facedeform_tpu_torch.ops import blendshapes, cuda_eval, dbse, decimate, distances, loocv
+    from facedeform_tpu_torch.ops import fit as fit_mod
+    from facedeform_tpu_torch.utils import errors
+
+    on_card = dev.type == "cuda"
+    _check(native.available(), "the fastgeo native library did not load: capture's host "
+           "times would be the numpy/scipy fallbacks'")
+    print(f"capture chain: native fastgeo loaded ({native.library_path()})", flush=True)
+    counters = (cuda_eval.evaluate_cuda, cuda_eval.evaluate_cuda_culled,
+                cuda_eval.control_records, cuda_eval.culled_tables,
+                cuda_eval.evaluate_cuda_frames, cuda_eval.frames_stream)
+    for fn in counters:
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(8)
+    mesh = uv_sphere(n_side, n_side)
+    pts_np = mesh.points
+    v = mesh.num_points
+    pts = torch.as_tensor(pts_np, device=dev)
+    markers = fibonacci_points(CAPTURE_MARKERS)
+    classes = _octants(markers)
+    rig = Mesh(points=markers)
+    rig.set_attr("class", classes)
+    hull = scipy.spatial.ConvexHull(markers).simplices.astype(np.int32)
+    tri_rig = Mesh(points=markers, faces=hull)
+    tri_rig.set_attr("class", classes)
+
+    # ---- 8a capture
+    kw = dict(max_edges=CAPTURE_MAXEDGES, radius=CAPTURE_RADIUS, dofalloff=True, falloffrate=1.0)
+    res, walls = {}, {}
+    for name, r, metric in (("points", rig, "euclidean"), ("triangles", tri_rig, "euclidean"),
+                            ("geodesic", rig, "geodesic")):
+        pc = ProximityCapture(device=dev)
+        _, walls[f"init {name}"] = _timed(lambda: pc.init(mesh, r), dev)
+        res[name], walls[f"capture {name}"] = _timed(
+            lambda: pc.capture(**kw, metric=metric), dev)
+    cap = res["points"]
+    cap_idx = np.nonzero(cap.captured)[0]
+    n_cap = len(cap_idx)
+    print(f"8a capture at {v} verts, {CAPTURE_MARKERS} markers in {len(np.unique(classes))} "
+          f"classes, maxedges {CAPTURE_MAXEDGES}, radius {CAPTURE_RADIUS}: {n_cap} captured "
+          f"({100.0 * n_cap / v:.1f}%), {len(hull)} rig triangles, "
+          f"{n_cap * len(hull)} point-triangle pairs  [{label}]", flush=True)
+    for name in ("triangles", "geodesic"):
+        _check(np.array_equal(res[name].captured, cap.captured),
+               f"the {name} capture's islands differ from the point rig's")
+    indptr, indices = mesh_adjacency(mesh)
+    seeds = cap.seed_vertices
+    _, t_adj = _timed(lambda: mesh_adjacency(mesh), dev)
+    _, t_kd = _timed(lambda: native.nearest(pts_np, markers), dev)
+    isl, t_flood = _timed(lambda: flood.find_islands(
+        indptr, indices, seeds, classes.astype(np.int64), CAPTURE_MAXEDGES), dev)
+    offsets = np.linalg.norm(markers - pts_np[seeds], axis=1).astype(np.float32)
+    saved = native.get_lib
+    native.get_lib = lambda: None      # the numpy/scipy fallbacks
+    try:
+        isl_np, t_flood_np = _timed(lambda: flood.find_islands(
+            indptr, indices, seeds, classes.astype(np.int64), CAPTURE_MAXEDGES), dev)
+        geo_sp, t_geo_sp = _timed(lambda: geodesic.geodesic_distance(
+            indptr, indices, pts_np, seeds, offsets), dev)
+    finally:
+        native.get_lib = saved
+    _check(sorted(isl) == sorted(isl_np) and all(np.array_equal(isl[k], isl_np[k]) for k in isl),
+           "the native flood's islands differ from the numpy fallback's")
+    _check(all(np.array_equal(cap.islands[k], isl[k]) for k in isl),
+           "capture's islands differ from the flood's")
+    geo_nat, t_geo = _timed(lambda: geodesic.geodesic_distance(
+        indptr, indices, pts_np, seeds, offsets), dev)
+    g_rel = np.abs(geo_nat[cap_idx].astype(np.float64) - geo_sp[cap_idx]) / np.maximum(
+        np.abs(geo_sp[cap_idx].astype(np.float64)), 1e-12)
+    g_all = np.abs(geo_nat.astype(np.float64) - geo_sp) / np.maximum(np.abs(geo_sp), 1e-12)
+    print(f"8a geodesic: native vs scipy dijkstra, captured verts max rel {g_rel.max():.3e} "
+          f"(tol {GEODESIC_RTOL:g}); all verts {g_all.max():.3e}")
+    _check(g_rel.max() <= GEODESIC_RTOL, "the native geodesic disagrees with scipy's dijkstra")
+    _check(np.allclose(res["geodesic"].dist2[cap_idx], geo_nat[cap_idx] ** 2, rtol=1e-6),
+           "the geodesic capture's dist2 is not the squared native geodesic")
+
+    # distances against float64 brute force on the card, and alone (events)
+    cap_pts = pts[torch.as_tensor(cap_idx, device=dev)]
+    m_t = torch.as_tensor(markers, device=dev)
+    tri_t = torch.as_tensor(markers[hull], device=dev)
+    want_p = _min_sqdist64_points(cap_pts, m_t)
+    want_t = _min_sqdist64_triangles(cap_pts, tri_t)
+    got = {k: torch.as_tensor(res[k].dist2[cap_idx], device=dev) for k in ("points", "triangles")}
+    ep = _within(got["points"], want_p, CAPTURE_RTOL, CAPTURE_ATOL)
+    et = _within(got["triangles"], want_t, CAPTURE_RTOL, CAPTURE_ATOL)
+    print(f"8a dist2 vs float64 brute force over all {n_cap} captured verts, of "
+          f"(atol {CAPTURE_ATOL:g} + rtol {CAPTURE_RTOL:g} |d2|): points {ep:.3e}, "
+          f"triangles {et:.3e} (<= 1 passes)")
+    _check(ep <= 1.0 and et <= 1.0, "capture dist2 disagrees with float64 brute force")
+    _check(bool((got["triangles"] <= got["points"] + 1e-6).all()),
+           "a point's distance to the hull exceeds its distance to the nearest marker")
+    print(f"8a times (host s): init (KD-tree + adjacency) {walls['init points']:.3f}, "
+          f"adjacency {t_adj:.3f}, KD nearest {t_kd:.4f}, flood {t_flood:.3f} (numpy "
+          f"fallback {t_flood_np:.3f}), geodesic {t_geo:.3f} (scipy {t_geo_sp:.3f}); "
+          f"capture() points {walls['capture points']:.3f}, triangles "
+          f"{walls['capture triangles']:.3f}, geodesic {walls['capture geodesic']:.3f}  "
+          f"[{label}]", flush=True)
+
+    # ---- 8b the gated deform
+    deformed = markers + 0.05 * rng.standard_normal(markers.shape).astype(np.float32)
+    params = DeformParams(radius=GATE_RADIUS)
+    d = Deformer.fit(markers, deformed, DeformConfig(), params, device=dev)
+    d2 = torch.as_tensor(cap.dist2, device=dev)
+    mesh.set_group("captured", cap.captured)
+    mesh.set_group("south", pts_np[:, 1] < -0.5)
+    mask_np = mesh.select_points("captured ^south")
+    mask = torch.as_tensor(mask_np, device=dev)
+    auto_pts, auto_w = d.apply(pts, dist2=d2)
+    dense_pts, dense_w = d.apply(pts, dist2=d2, backend="cuda")
+    g_pts, g_w = d.apply(pts, dist2=d2, group_mask=mask)
+    g2_pts, _ = d.apply(pts, dist2=d2, group_mask=mask, backend="cuda")
+    p = d.params.clamped()
+    kernel = fit_mod.effective_kernel(d.cfg)
+    ref, ref_w = cuda_eval.evaluate_reference(d.model, pts, d2, torch.ones_like(d2), p.radius,
+                                              p.falloffrate, kernel, d.cfg.term)
+    ref_g, ref_gw = cuda_eval.evaluate_reference(d.model, pts, d2, mask.float(), p.radius,
+                                                 p.falloffrate, kernel, d.cfg.term)
+    ref_g = torch.where(mask[:, None], ref_g, pts)
+    errs_b = {"auto (culled)": float((auto_pts - ref).abs().max()),
+              "cuda (dense)": float((dense_pts - ref).abs().max()),
+              "gated auto": float((g_pts - ref_g).abs().max()),
+              "gated cuda": float((g2_pts - ref_g).abs().max())}
+    w_err = max(float((auto_w - ref_w).abs().max()), float((dense_w - ref_w).abs().max()),
+                float((g_w - ref_gw).abs().max()))
+    active = float((auto_w > 0).float().mean())
+    beyond = d2 > p.radius * p.radius                  # the falloff's skip test
+    print(f"8b gated deform at {v} x {CAPTURE_MARKERS} (capture dist2, radius "
+          f"{p.radius:g}: {100 * active:.1f}% active, the capture gate freezes "
+          f"{int(beyond.sum())} verts; group 'captured ^south': "
+          f"{100 * mask_np.mean():.1f}%): vs the plain twin "
+          + ", ".join(f"{k} {e:.3e}" for k, e in errs_b.items())
+          + f" (tol {POS_TOL_DECAYING:g}); falloff {w_err:.3e} (tol {FALLOFF_TOL:g})  [{label}]",
+          flush=True)
+    _check(max(errs_b.values()) <= POS_TOL_DECAYING and w_err <= FALLOFF_TOL,
+           "a gated apply disagrees with its plain twin")
+    _check(bool(beyond.any()), "the capture gate freezes no vertex")
+    for name, out, w in (("auto", auto_pts, auto_w), ("cuda", dense_pts, dense_w)):
+        still = w == 0
+        _check(bool(still[beyond].all()), f"{name}: a vertex beyond the radius has weight")
+        _check(bool(torch.equal(out[still], pts[still])), f"{name}: inactive vertices moved")
+    off = ~mask | (g_w == 0)
+    _check(bool(torch.equal(g_pts[off], pts[off])) and bool(torch.equal(g2_pts[off], pts[off])),
+           "vertices outside the group or the falloff moved")
+    _check(bool(torch.isfinite(g_pts).all()), "gated apply not finite")
+
+    # ---- 8c DBSE
+    shapes, t_shapes = _timed(lambda: _bump_shapes(pts_np, DBSE_SHAPES, seed=8), dev)
+    model, t_build = _timed(lambda: dbse.build_model(pts_np, shapes, device=dev), dev)
+    del shapes
+    w_true = torch.as_tensor(rng.uniform(-0.5, 0.5, DBSE_SHAPES).astype(np.float32), device=dev)
+    pose = pts + dbse.reconstruct(model, w_true, None, parity_scale=False)
+    w_l, rep_l = dbse.weights_lstsq(model, pose, pts)
+    errors.check_solve(rep_l)
+    recon = pts + dbse.reconstruct(model, w_l, None, False)
+    e_w, e_rec = float((w_l - w_true).abs().max()), float((recon - pose).abs().max())
+    bad = torch.as_tensor(rng.choice(v, int(DBSE_OUTLIER_FRAC * v), replace=False), device=dev)
+    pose_o = pose.clone()
+    pose_o[bad] += 0.5 * torch.randn(len(bad), 3, device=dev,
+                                     generator=torch.Generator(device=dev).manual_seed(8))
+    w_r, _ = dbse.weights_robust(model, pose_o, pts)
+    w_lo, _ = dbse.weights_lstsq(model, pose_o, pts)
+    e_r, e_lo = float((w_r - w_true).abs().max()), float((w_lo - w_true).abs().max())
+    print(f"8c DBSE {DBSE_SHAPES} shapes x {v} verts (B {4 * 3 * v * DBSE_SHAPES / 1e6:.0f} MB): "
+          f"lstsq |w - w_true| {e_w:.3e}, reconstruction {e_rec:.3e} (tol {DBSE_W_TOL:g}); "
+          f"{100 * DBSE_OUTLIER_FRAC:g}% outliers: robust {e_r:.3e} (tol {DBSE_W_TOL:g}), "
+          f"plain lstsq {e_lo:.3e}", flush=True)
+    _check(e_w <= DBSE_W_TOL and e_rec <= DBSE_W_TOL, "DBSE lstsq misses the known weights")
+    _check(e_r <= DBSE_W_TOL, "robust DBSE misses the known weights under outliers")
+
+    # the parity route: the host float64 packed QR, timed on a subset first
+    v_probe = min(v, 65536)
+    sub = np.linspace(0, v - 1, v_probe).astype(np.int64)
+    # a bump is a function of its vertex alone: the subset's shapes are the
+    # full shapes' rows
+    shapes_sub = _bump_shapes(pts_np[sub], DBSE_SHAPES, seed=8)
+    _, t_probe = _timed(lambda: dbse.build_model(
+        pts_np[sub], shapes_sub, parity=True, device=dev), dev)
+    predicted = t_probe * v / v_probe
+    v_par = (v if predicted <= PARITY_HOST_LIMIT_S
+             else int(v_probe * 0.8 * PARITY_HOST_LIMIT_S / t_probe))
+    v_par = min(max(v_par, v_probe), v)
+    sub = np.linspace(0, v - 1, v_par).astype(np.int64)
+    shapes_sub = _bump_shapes(pts_np[sub], DBSE_SHAPES, seed=8)
+    model_p, t_par_build = _timed(lambda: dbse.build_model(
+        pts_np[sub], shapes_sub, parity=True, device=dev), dev)
+    del shapes_sub
+    sub_t = torch.as_tensor(sub, device=dev)
+    w_p = dbse.weights_parity(model_p, pose[sub_t], pts[sub_t])
+    twin = (pose[sub_t] - pts[sub_t]).double().reshape(-1) @ model_p.packed_qr.double()
+    e_par = _within(w_p, twin, DBSE_PARITY_RTOL, DBSE_PARITY_ATOL)
+    cut = "" if v_par == v else (f"; CUT to {v_par} verts: at {v_probe} the packed QR took "
+                                 f"{t_probe:.2f} s, {predicted:.1f} s predicted at {v}")
+    print(f"8c parity route at {v_par} verts: packed QR + model {t_par_build:.2f} s (host "
+          f"float64){cut}; weights vs the float64 twin {e_par:.3e} of (atol "
+          f"{DBSE_PARITY_ATOL:g} + rtol {DBSE_PARITY_RTOL:g}|w|) (<= 1 passes)  [{label}]",
+          flush=True)
+    _check(e_par <= 1.0, "parity weights disagree with the float64 twin")
+
+    # batched over slice B's 8-pose shot
+    shot = _shot_b(pts, dev)
+    w_b, rep_b = dbse.weights_lstsq_batched(model, shot, pts)
+    e_b = max(float((w_b[f] - dbse.weights_lstsq(model, shot[f], pts)[0]).abs().max())
+              for f in range(shot.shape[0]))
+    _check(bool(errors.frames_solve_ok(rep_b).all()), "a batched DBSE frame failed its solve")
+    print(f"8c batched over slice B's 8-pose shot: vs per-frame calls {e_b:.3e} (tol "
+          f"{DBSE_BATCHED_TOL:g})")
+    _check(e_b <= DBSE_BATCHED_TOL, "batched DBSE weights disagree with per-frame calls")
+
+    # the morph stage on 8b's gated output, gated by the group (node.py:990-1000)
+    cfg_m = DeformConfig(dofalloff=True, morphspace=True)
+    w_g, rep_g = dbse.weights_lstsq(model, g_pts, pts)
+    errors.check_solve(rep_g)
+    morphed = dbse.morph_apply(model, g_pts, pts, w_g, cfg_m, params)
+    out = torch.where(mask[:, None], morphed, g_pts)
+    want = (pts.double() + (w_g.double() @ model.deltas.double().reshape(DBSE_SHAPES, -1))
+            .reshape(-1, 3) + (g_pts.double() - pts.double()) * params.falloffradius)
+    e_m = float((morphed.double() - want).abs().max())
+    print(f"8c morph_apply vs its float64 formula {e_m:.3e} (tol {MORPH_TOL:g}); host: shapes "
+          f"{t_shapes:.2f} s, build_model {t_build:.2f} s  [{label}]", flush=True)
+    _check(e_m <= MORPH_TOL, "morph_apply disagrees with its float64 formula")
+    _check(bool(torch.isfinite(out).all()) and bool(torch.equal(out[~mask], g_pts[~mask])),
+           "the gated morph is not finite or moved vertices outside the group")
+
+    # ---- 8d the bake
+    (bake, brep), t_bake = _timed(lambda: blendshapes.fit_blendshapes(
+        pts, shot, rank=8, device=dev), dev)
+    d64 = (shot.double() - pts.double()[None]).reshape(shot.shape[0], -1)
+    d64 = d64 - d64.mean(0)
+    s64 = torch.sqrt(torch.clamp(torch.linalg.eigvalsh(d64 @ d64.T), min=0.0)).flip(0).cpu().numpy()
+    alive = s64 > 1e-6 * s64[0]
+    sv_err = float(np.max(np.abs(brep.singular_values[alive] - s64[alive]) / s64[alive]))
+    scale = float((shot - pts[None]).abs().max())
+    shapes_b, t_meshes = _timed(lambda: blendshapes.blendshape_meshes(bake, mesh), dev)
+    dm = dbse.build_model(pts_np, [m.points for m in shapes_b], device=dev)
+    del shapes_b
+    # no ridge: the default 1e-6 tr/S ridge biases the smallest mode's
+    # weights by ~1e-3 (its Gram diagonal is far below the mean target's)
+    w_back, _ = dbse.weights_lstsq_batched(dm, shot, pts, ridge=0.0)
+    e_back = float((w_back - bake.weights).abs().max())
+    print(f"8d bake of the 8-pose shot at {v}: {bake.n_targets} targets, max err "
+          f"{brep.max_err:.3e} (tol {2e-5 * max(scale, 1.0):.3e}), singular values vs float64 "
+          f"{sv_err:.3e} (rtol {BAKE_SV_RTOL:g}), blendshape_meshes -> build_model -> weights "
+          f"(no ridge) vs the bake's curves {e_back:.3e} (tol {DBSE_W_TOL:g}); fit_blendshapes "
+          f"{t_bake:.3f} s, blendshape_meshes {t_meshes:.3f} s  [{label}]", flush=True)
+    _check(brep.max_err <= 2e-5 * max(scale, 1.0), "the full-rank bake does not reconstruct")
+    _check(sv_err <= BAKE_SV_RTOL, "bake singular values disagree with float64")
+    _check(e_back <= DBSE_W_TOL, "the baked meshes do not give back the bake's weights")
+    del dm
+
+    # ---- 8e the rig tools
+    rest_n = fibonacci_points(decimate_n)
+    def_n = (rest_n + 0.05 * np.sin(3.0 * rest_n[:, [1, 2, 0]])
+             + 0.001 * rng.standard_normal(rest_n.shape)).astype(np.float32)
+    traces = []
+    for k in (decimate_k // 8, decimate_k // 4, decimate_k // 2):
+        traces.append(decimate.select_markers(rest_n, k, device=dev)[1].residual_trace)
+    (idx, sel), t_sel = _timed(lambda: decimate.select_markers(
+        rest_n, decimate_k, device=dev), dev)
+    traces.append(sel.residual_trace)
+    (_, red), t_red = _timed(lambda: decimate.reduce_rig(
+        rest_n, def_n, decimate_k, device=dev), dev)
+    (rm, rrep, rinfo), t_fr = _timed(lambda: decimate.fit_reduced(
+        rest_n, def_n, decimate_k, idx=idx, device=dev), dev)
+    errors.check_solve(rrep)
+    dr = Deformer(model=rm, cfg=DeformConfig(), params=DeformParams(), report=rrep, reduced=True)
+    r_pts, _ = dr.apply(pts)
+    print(f"8e select_markers {decimate_k} of {decimate_n}: {t_sel:.3f} s, residual traces at k = "
+          f"{decimate_k // 8}/{decimate_k // 4}/{decimate_k // 2}/{decimate_k}: "
+          + "/".join(f"{t:.4e}" for t in traces)
+          + f"; reduce_rig {t_red:.3f} s, error at the {decimate_n - decimate_k} dropped markers "
+          f"max {red.max_err:.3e}, rms {red.rms_err:.3e} ({100 * red.relative_max_err:.2f}% of "
+          f"motion {red.motion_scale:.3e}); fit_reduced {t_fr:.3f} s (fit rms {rinfo.fit_rms:.3e}, "
+          f"max {rinfo.fit_max:.3e})  [{label}]", flush=True)
+    _check(all(a > b for a, b in zip(traces, traces[1:])), "the residual trace does not fall")
+    _check(len(np.unique(idx)) == decimate_k, "select_markers picked a marker twice")
+    _check(all(bool(torch.isfinite(t).all()) for t in (rm.w_rbf, rm.w_poly, rm.eps, r_pts)),
+           "the reduced model or its apply is not finite")
+
+    rest_l = fibonacci_points(loocv_n)
+    def_l = (rest_l + 0.05 * np.sin(3.0 * rest_l[:, [1, 2, 0]])
+             + 0.002 * rng.standard_normal(rest_l.shape)).astype(np.float32)
+    (tuned, diag), t_auto = _timed(lambda: loocv.autotune(rest_l, def_l, device=dev), dev)
+    ctrl = torch.as_tensor(rest_l, device=dev)
+    delta = torch.as_tensor(def_l - rest_l, device=dev)
+    eps = fit_mod._qnn_radii(ctrl, tuned.qcoef, tuned.zcoef)
+    e, _ = loocv.loocv_errors(ctrl, delta, fit_mod.effective_kernel(DeformConfig()),
+                              DeformConfig().term, eps, 0.0)
+    picks = np.linspace(0, loocv_n - 1, LOOCV_REFITS).astype(np.int64)
+    c64, d64_, eps64 = ctrl.double(), delta.double(), eps.double()
+    e64 = []
+    for i in picks:
+        keep = torch.ones(loocv_n, dtype=torch.bool, device=dev)
+        keep[int(i)] = False
+        c, ep = c64[keep], eps64[keep]
+        n1 = loocv_n - 1
+        p_c = torch.cat([torch.ones(n1, 1, dtype=torch.float64, device=dev), c], 1)
+        a = torch.zeros(n1 + 4, n1 + 4, dtype=torch.float64, device=dev)
+        a[:n1, :n1] = torch.exp(-((c[:, None] - c[None]) ** 2).sum(-1) / ep[None] ** 2)
+        a[:n1, n1:] = p_c
+        a[n1:, :n1] = p_c.T
+        a[n1:, n1:] = -1e-8 * torch.eye(4, dtype=torch.float64, device=dev)
+        x = torch.linalg.solve(a, torch.cat([d64_[keep], torch.zeros(4, 3, dtype=torch.float64,
+                                                                     device=dev)]))
+        xi = c64[int(i):int(i) + 1]
+        pred = (torch.exp(-((xi[:, None] - c[None]) ** 2).sum(-1) / ep[None] ** 2) @ x[:n1]
+                + torch.cat([torch.ones(1, 1, dtype=torch.float64, device=dev), xi], 1) @ x[n1:])
+        e64.append(pred[0] - d64_[int(i)])
+    e64 = torch.stack(e64)
+    e_loo = float((e[torch.as_tensor(picks, device=dev)].double() - e64).abs().max()
+                  / e64.abs().max())
+    print(f"8e loocv.autotune at {loocv_n} controls (default config): {t_auto:.3f} s for "
+          f"{diag['scores'].size} candidates, best factor {diag['best_factor']:g} (score "
+          f"{diag['best_score']:.4e}); Rippa errors vs {LOOCV_REFITS} float64 leave-one-out "
+          f"refits {e_loo:.3e} of max |e| (tol {LOOCV_RTOL:g})  [{label}]", flush=True)
+    _check(e_loo <= LOOCV_RTOL, "LOOCV's closed form disagrees with explicit refits")
+
+    wall = time.perf_counter() - t_phase
+    launches = {fn.__name__: fn.launches for fn in counters}
+    if on_card:
+        # the device steps alone: CUDA events over interleaved rounds, one
+        # warm-up call each (benchmark.time_cuda), after the counters are read
+        from facedeform_tpu_torch.benchmark import stats, time_cuda
+
+        shot64 = shot.repeat(8, 1, 1)                  # a longer shot: the per-frame cost
+        fns = {
+            f"points query ({n_cap} x {CAPTURE_MARKERS})":
+                lambda: distances.min_sqdist_to_points(cap_pts, m_t),
+            f"triangles query ({n_cap} x {len(hull)})":
+                lambda: distances.min_sqdist_to_triangles(cap_pts, tri_t),
+            "apply(dist2) auto (culled)": lambda: d.apply(pts, dist2=d2),
+            "apply(dist2) cuda (dense)": lambda: d.apply(pts, dist2=d2, backend="cuda"),
+            "apply(dist2, group_mask) auto": lambda: d.apply(pts, dist2=d2, group_mask=mask),
+            "weights_lstsq": lambda: dbse.weights_lstsq(model, pose, pts),
+            "weights_robust": lambda: dbse.weights_robust(model, pose_o, pts),
+            f"weights_parity (at {v_par})":
+                lambda: dbse.weights_parity(model_p, pose[sub_t], pts[sub_t]),
+            "weights_lstsq_batched (8 frames)": lambda: dbse.weights_lstsq_batched(model, shot, pts),
+            "weights_lstsq_batched (64 frames)":
+                lambda: dbse.weights_lstsq_batched(model, shot64, pts),
+            "reconstruct": lambda: dbse.reconstruct(model, w_l, None, False),
+            "morph_apply": lambda: dbse.morph_apply(model, g_pts, pts, w_g, cfg_m, params),
+            "fit_blendshapes (rank 8, 8 frames)":
+                lambda: blendshapes.fit_blendshapes(pts, shot, rank=8, device=dev),
+            f"reduced Deformer apply ({decimate_k} centers)": lambda: dr.apply(pts),
+        }
+        slow = {k: 1 for k in fns if k.startswith(("triangles", "weights_robust", "fit_blend"))}
+        times = time_cuda(fns, rounds=3, iters={k: slow.get(k, 5) for k in fns})
+        for k, ms in times.items():
+            best, med, spread = stats(ms)
+            print(f"8 time {k}: {best:.4f} ms best, {med:.4f} median, spread "
+                  f"{100 * spread:.1f}% at {v} verts  [{label}]", flush=True)
+    print(f"capture chain: {wall:.1f} s wall; launches {launches}  [{label}]", flush=True)
+    if on_card:
+        _check(launches["evaluate_cuda"] > 0, "the capture chain did not launch the dense kernel")
+        _check(launches["evaluate_cuda_culled"] > 0,
+               "the capture chain did not launch the culled kernel")
+    return {"launches": launches, "wall_s": wall}
+
+
 def _ptxas_summary(log: str) -> list:
     """One line per compiled kernel: name<template args>, registers, spills."""
     lines, name = [], None
@@ -3227,6 +3745,10 @@ def main() -> int:
         main_path_large_rigs(dev, label)
         main_path_drag(dev, label)
         return 0
+    if "--capture" in sys.argv[1:]:
+        # the capture chain (phase 8) alone
+        main_path_capture(dev, label)
+        return 0
 
     check_kernels(dev)
     check_pack_kernels(dev)
@@ -3245,14 +3767,18 @@ def main() -> int:
     check_krylov_parity(dev, label)
     large = main_path_large_rigs(dev, label)
     drag = main_path_drag(dev, label)
+    torch.cuda.empty_cache()
+    chain = main_path_capture(dev, label)
     kernels = (time_kernels(main, label) + time_frames(main_b, label)
                + time_precise(main_c, label) + time_pu(main_f, shot_f, label))
-    # the kernels the large-rig and drag paths launched, by path (each
-    # path's counters set to 0 just before it and read just after)
+    # the kernels the large-rig, drag and capture-chain paths launched, by
+    # path (each path's counters set to 0 just before it and read just after)
     paths = {"large rigs": large["launches"],
-             **{f"drag {k}": v["launches"] for k, v in drag.items() if "launches" in v}}
+             **{f"drag {k}": v["launches"] for k, v in drag.items() if "launches" in v},
+             "capture chain": chain["launches"]}
     counter_of = {"eval_dense": "evaluate_cuda", "eval_culled": "evaluate_cuda_culled",
                   "eval_records": "control_records", "culled_tables": "culled_tables",
+                  "eval_frames": "evaluate_cuda_frames", "frames_stream": "frames_stream",
                   "eval_precise": "evaluate_cuda_precise",
                   "eval_precise_frames": "evaluate_cuda_precise_frames"}
     for k in kernels:

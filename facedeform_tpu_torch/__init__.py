@@ -16,12 +16,22 @@ Same math and public names as the JAX package (which stays the reference):
   parallel.batched             — the animated shot: fit_frames ->
                                  apply_frames -> transport_frames
   ops.temporal                 — Savitzky-Golay rig smoothing of a shot
+  ProximityCapture             — capture: islands around the markers and
+                                 the capture distances apply(dist2=) reads
+                                 (capture/; host geometry in geometry/ and
+                                 native/, distances on the device)
+  ops.dbse                     — morph-space (DBSE) weights and morph_apply
+  ops.blendshapes              — bake a shot to morph targets
+  ops.decimate, ops.loocv      — rig decimation (select_markers,
+                                 reduce_rig, fit_reduced) and LOOCV
+                                 radius selection (autotune, fit_auto)
 The GPU kernels (dense, culled and frames eval, Jacobian, and the float64
 precise eval of the growing kernels) are CUDA C++ in csrc/, compiled for
 sm_90a at first use (ops/cuda_eval.py); importing the package builds
 nothing and imports no JAX.
 """
 
+from facedeform_tpu_torch.capture.capture import CaptureResult, ProximityCapture
 from facedeform_tpu_torch.config import (
     DeformConfig,
     DeformParams,
@@ -30,27 +40,40 @@ from facedeform_tpu_torch.config import (
     RBFModelType,
 )
 from facedeform_tpu_torch.deformer import Deformer, FitPlan
+from facedeform_tpu_torch.geometry import Mesh, load_mesh, save_mesh
 from facedeform_tpu_torch.models import (
     KernelZooDeformModel,
     MultilayerDeformModel,
     PartitionOfUnityModel,
     QNNDeformModel,
 )
+from facedeform_tpu_torch.ops.blendshapes import BlendshapeModel, fit_blendshapes
+from facedeform_tpu_torch.ops.dbse import DBSEModel
 from facedeform_tpu_torch.ops.fit import RBFModel
 from facedeform_tpu_torch.ops.solve import SolveReport
+from facedeform_tpu_torch.utils.errors import CaptureError
 
 __all__ = [
+    "BlendshapeModel",
+    "CaptureError",
+    "CaptureResult",
+    "DBSEModel",
     "DeformConfig",
     "DeformParams",
     "Deformer",
     "FitPlan",
     "KernelZooDeformModel",
+    "Mesh",
     "MultilayerDeformModel",
     "PartitionOfUnityModel",
     "PolyTerm",
+    "ProximityCapture",
     "QNNDeformModel",
     "RBFKernel",
     "RBFModel",
     "RBFModelType",
     "SolveReport",
+    "fit_blendshapes",
+    "load_mesh",
+    "save_mesh",
 ]

@@ -66,6 +66,10 @@ class Deformer:
     cfg: DeformConfig
     params: DeformParams
     report: SolveReport
+    # True for reduced-basis regression fits (ops/decimate.fit_reduced):
+    # the model's ctrl are K selected centers of a larger rig, so a
+    # deformer/rig control-count mismatch is intended there
+    reduced: bool = False
 
     @classmethod
     def fit(

@@ -145,6 +145,41 @@ def lu_solve_refined_df(
     return x_pair, report
 
 
+def lu_solve_refined_factored(
+    a: torch.Tensor, b: torch.Tensor, n_refine: int = 2
+) -> tuple[torch.Tensor, SolveReport, tuple[torch.Tensor, torch.Tensor]]:
+    """lu_solve_refined that also returns the (lu, piv) factors: LOOCV
+    (ops/loocv.py) derives the inverse diagonal of the same matrix from
+    them with two triangular solves instead of a second factorization."""
+    (x, _), report, lu_piv = _lu_refined_impl(a, b, n_refine, want_lo=False)
+    return x, report, lu_piv
+
+
+def cholesky_solve_refined(
+    a: torch.Tensor, b: torch.Tensor, n_refine: int = 2
+) -> tuple[torch.Tensor, SolveReport]:
+    """Symmetric positive-definite solve (the DBSE normal equations): f32
+    Cholesky, n_refine sweeps of refinement with float64 residuals, the
+    solution kept in f32 as the JAX package keeps it.  a (..., n, n) and
+    b (..., n, k) may carry a leading batch axis (one report field per
+    system).  A factorization that fails (not positive definite) gives
+    NaN, so the report's backward error is non-finite, as JAX's is."""
+    a = a.float()
+    b = b.float()
+    a64, b64 = a.double(), b.double()
+    with highest_precision():
+        c, info = torch.linalg.cholesky_ex(a)
+        c = torch.where((info != 0)[..., None, None], torch.full_like(c, float("nan")), c)
+        x = torch.cholesky_solve(b, c)
+        for _ in range(n_refine):
+            r = _residual64(a64, x, None, b64)
+            x = x + torch.cholesky_solve(r, c)
+    r = _residual64(a64, x, None, b64)
+    # the Cholesky diagonal enters the condition squared (A = L L^T)
+    diag = torch.diagonal(c, dim1=-2, dim2=-1)
+    return x, _report_from(torch.linalg.norm(a, dim=(-2, -1)), diag * diag, x, b, r)
+
+
 def lu_resolve_refined_df(
     lu_piv, a: torch.Tensor, b: torch.Tensor, n_refine: int = 2
 ) -> tuple[tuple[torch.Tensor, torch.Tensor], SolveReport]:

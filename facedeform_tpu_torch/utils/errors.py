@@ -147,3 +147,38 @@ def check_frames(resid_norms, rest_ctrl, frames, cfg=None, report=None) -> None:
             f"{float(rhs[worst]):.3e} (rtol {SOLVE_RESIDUAL_RTOL:g}) — singular "
             "or ill-conditioned system"
         )
+
+
+def frames_solve_ok(report, rtol: float = SOLVE_BACKWARD_RTOL):
+    """Per-frame health mask (F,) numpy bool for a report whose fields
+    carry a leading frame axis (ops.dbse.weights_lstsq_batched).  Unlike
+    check_solve it does not raise: a shot skips the morph pass only on the
+    frames whose weight solve failed (the reference's terminationtype
+    contract, src/SOP_FaceDeform.cpp:363-368, applied per cook).  One
+    device-to-host copy for the whole stack."""
+    import numpy as np
+
+    f = int(report.residual_norm.shape[0])
+    if getattr(report, "scale_norm", None) is None:
+        # check_solve's legacy branch: a zero-RHS frame passes on any
+        # finite residual
+        vals = torch.cat([report.residual_norm.reshape(-1),
+                          report.rhs_norm.reshape(-1)]).float().cpu().numpy()
+        res, rhs = vals[:f], vals[f:]
+        return np.isfinite(res) & ~(
+            (rhs > 0) & (res > SOLVE_RESIDUAL_RTOL * np.maximum(rhs, 1e-30))
+        )
+    col = report.col_backward
+    k = 0 if col is None else int(col.shape[-1])
+    parts = [report.residual_norm.reshape(-1), report.scale_norm.reshape(-1)]
+    if k:
+        parts.append(col.reshape(-1))
+    vals = torch.cat([p.float() for p in parts]).cpu().numpy()
+    res, scale = vals[:f], vals[f:2 * f]
+    backward = res / np.maximum(scale, 1e-30)
+    ok = np.isfinite(res) & (backward <= rtol)
+    if k:
+        colv = vals[2 * f:].reshape(f, k)
+        with np.errstate(invalid="ignore"):
+            ok &= np.isfinite(colv).all(axis=1) & (colv.max(axis=1) <= rtol)
+    return ok

@@ -126,7 +126,7 @@ def test_growing_kernels_and_krylov_not_ported():
     # JAX's auto route (dense_precise) does
     jd = jdef.Deformer.fit(rest, deformed, mq, jcfg.DeformParams())
     model = convert.model_from_numpy(
-        {f: np.asarray(getattr(jd.model, f)) for f in jd.model._fields})
+        {f: np.asarray(getattr(jd.model, f)) for f in jd.model._fields}, device="cpu")
     assert model.w_rbf_lo is not None
     td = Deformer(model=model, cfg=_port(mq, jcfg.DeformParams())[0],
                   params=_port(mq, jcfg.DeformParams())[1], report=None)

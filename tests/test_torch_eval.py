@@ -72,7 +72,7 @@ def _jax_model(kernel, n_layers):
 def _to_port(model):
     return convert.model_from_numpy(
         {f: np.asarray(getattr(model, f)) for f in model._fields
-         if getattr(model, f) is not None})
+         if getattr(model, f) is not None}, device="cpu")
 
 
 def _inputs(seed=0):
@@ -164,7 +164,7 @@ def test_centering_path(kernel):
     pts = torch.as_tensor(_inputs()[0])
     got = evaluate(m, pts, kernel, TERM).double()
     m64 = convert.model_from_numpy(
-        {f: np.asarray(getattr(jm, f)) for f in ("ctrl", "w_rbf", "w_poly", "eps")})
+        {f: np.asarray(getattr(jm, f)) for f in ("ctrl", "w_rbf", "w_poly", "eps")}, device="cpu")
     d2 = ((pts.double()[:, None] - m64.ctrl.double()[None]) ** 2).sum(-1)
     phi = apply_kernel(kernel, d2, m64.eps.double()[0])
     ones = torch.ones(V, 1, dtype=torch.float64)

@@ -144,6 +144,6 @@ def test_krylov_route_not_ported():
 def test_state_dict_is_the_jax_field_set():
     _, (jm, _), (tm, _), _ = _both(dict(model=M.QNN))
     assert set(tm.state_dict()) == set(jm._fields)
-    back = convert.model_from_numpy({k: v.numpy() for k, v in tm.state_dict().items()})
+    back = convert.model_from_numpy({k: v.numpy() for k, v in tm.state_dict().items()}, device="cpu")
     for k, v in tm.state_dict().items():
         assert torch.equal(getattr(back, k), v)

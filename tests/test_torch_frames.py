@@ -57,7 +57,7 @@ def _port_params(params=PARAMS):
 def _to_port(model):
     return convert.model_from_numpy(
         {f: np.asarray(getattr(model, f)) for f in model._fields
-         if getattr(model, f) is not None})
+         if getattr(model, f) is not None}, device="cpu")
 
 
 def _shot(n=80, n_frames=5, seed=0):
@@ -248,7 +248,7 @@ def test_frames_reference_matches_pallas(kernel, n_layers, n_frames, with_frame)
         jnp.float32(1.0), jnp.float32(1.0), kernel, TERM, tile_v=128, interpret=True,
         frame=tuple(map(jnp.asarray, frame)) if with_frame else None)
     got, got_w = cuda_eval.evaluate_frames_reference(
-        convert.model_from_numpy(arrays), torch.as_tensor(pts), torch.zeros(300),
+        convert.model_from_numpy(arrays, device="cpu"), torch.as_tensor(pts), torch.zeros(300),
         torch.as_tensor(fold), 1.0, 1.0, kernel, TERM,
         frame=tuple(map(torch.as_tensor, frame)) if with_frame else None)
     assert tuple(got.shape) == (n_frames, 300, 3)
@@ -270,7 +270,7 @@ def test_frames_reference_general_falloff_matches_pallas(strict):
         jnp.float32(1.5), K.GAUSSIAN, TERM, strict_parity=strict, tile_v=128,
         interpret=True)
     got, got_w = cuda_eval.evaluate_frames_reference(
-        convert.model_from_numpy(arrays), torch.as_tensor(pts), torch.as_tensor(dist2),
+        convert.model_from_numpy(arrays, device="cpu"), torch.as_tensor(pts), torch.as_tensor(dist2),
         torch.as_tensor(gate), 0.8, 1.5, K.GAUSSIAN, TERM, strict_parity=strict)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-6)
     np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), atol=1e-6)
@@ -281,7 +281,7 @@ def test_frames_reference_matches_per_frame_eval(with_frame):
     """Frames eval == the single-pose eval run frame by frame
     (tests/test_pallas.py's 1e-6)."""
     arrays = _synthetic(100, 3, 4, K.GAUSSIAN, seed=7)
-    model = convert.model_from_numpy(arrays)
+    model = convert.model_from_numpy(arrays, device="cpu")
     pts, dist2, gate, frame = (torch.as_tensor(a) if not isinstance(a, tuple)
                                else tuple(map(torch.as_tensor, a)) for a in _mesh(v=300))
     frame = frame if with_frame else None
@@ -297,7 +297,7 @@ def test_frames_reference_matches_per_frame_eval(with_frame):
 
 def test_frames_wrapper_on_cpu_runs_the_plain_version():
     arrays = _synthetic(60, 1, 3, K.GAUSSIAN, seed=3)
-    model = convert.model_from_numpy(arrays)
+    model = convert.model_from_numpy(arrays, device="cpu")
     pts, dist2, gate, _ = (torch.as_tensor(a) if not isinstance(a, tuple) else a
                            for a in _mesh(v=200))
     args = (model, pts, dist2, gate, 1.0, 1.5, K.GAUSSIAN, TERM)

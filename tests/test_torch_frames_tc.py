@@ -246,7 +246,7 @@ def test_3xtf32_emulation_holds_twin_and_pallas(rig, n_frames):
     kernel, arrays = _fitted(rig)
     arrays = dict(arrays, w_rbf=arrays["w_rbf"][:n_frames], w_poly=arrays["w_poly"][:n_frames])
     assert rig != "tps" or cuda_eval._center_phi(kernel, TERM)
-    model = convert.model_from_numpy(arrays)
+    model = convert.model_from_numpy(arrays, device="cpu")
     pts, fold, frame = _mesh()
     v = pts.shape[0]
     args = (model, torch.as_tensor(pts), torch.zeros(v), torch.as_tensor(fold), 1.0, 1.0,
@@ -275,7 +275,7 @@ def test_emulated_frames_bit_equal_across_launch_splits(rig):
     kernel, arrays = _fitted(rig)
     w = np.concatenate([arrays["w_rbf"], -0.5 * arrays["w_rbf"][:3]])
     tails = np.concatenate([arrays["w_poly"], -0.5 * arrays["w_poly"][:3]])
-    model = convert.model_from_numpy(dict(arrays, w_rbf=w, w_poly=tails))
+    model = convert.model_from_numpy(dict(arrays, w_rbf=w, w_poly=tails), device="cpu")
     pts, fold, frame = _mesh(v=200, seed=2)
     args = (model, torch.as_tensor(pts), torch.zeros(200), torch.as_tensor(fold), 1.0, 1.0,
             kernel, TERM)

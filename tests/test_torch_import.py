@@ -20,7 +20,12 @@ def test_import_loads_no_jax_and_builds_nothing(tmp_path):
         "import facedeform_tpu_torch.ops.krylov, facedeform_tpu_torch.ops.precise_eval\n"
         "import facedeform_tpu_torch.ops.pu, facedeform_tpu_torch.ops.cuda_pu as cpu_\n"
         "import facedeform_tpu_torch.models\n"
-        "from facedeform_tpu_torch import FitPlan, QNNDeformModel\n"
+        "from facedeform_tpu_torch import FitPlan, QNNDeformModel, ProximityCapture, Mesh\n"
+        "import facedeform_tpu_torch.native as nat, facedeform_tpu_torch.capture.geodesic\n"
+        "import facedeform_tpu_torch.ops.dbse, facedeform_tpu_torch.ops.blendshapes\n"
+        "import facedeform_tpu_torch.ops.decimate, facedeform_tpu_torch.ops.loocv\n"
+        "import facedeform_tpu_torch.ops.distances, facedeform_tpu_torch.geometry.geo_io\n"
+        "assert nat._lib is None and not nat._tried\n"
         "jax = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'facedeform_tpu')]\n"
         "assert not jax, jax\n"
         "assert ce._lib is None\n"

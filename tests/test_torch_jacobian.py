@@ -72,7 +72,7 @@ def test_jacobian_matches_pallas_and_xla(kernel, n_layers):
     rng = np.random.default_rng(int(kernel) + 10 * n_layers)
     arrays = _arrays(rng, 120, n_layers, kernel=kernel)
     pts = _points(rng, 300)
-    got = cuda_jacobian.jacobian_cuda(convert.model_from_numpy(arrays), torch.as_tensor(pts),
+    got = cuda_jacobian.jacobian_cuda(convert.model_from_numpy(arrays, device="cpu"), torch.as_tensor(pts),
                                       kernel, PT.LINEAR).numpy()
     want_pallas = pallas_jacobian.jacobian_pallas(_jax(arrays), jnp.asarray(pts), kernel,
                                                   PT.LINEAR, tile_v=128, interpret=True)
@@ -88,7 +88,7 @@ def test_jacobian_frames_matches_pallas(kernel, n_frames):
     rng = np.random.default_rng(int(kernel) + n_frames)
     arrays = _arrays(rng, 100, 2, n_frames=n_frames, kernel=kernel)
     pts = _points(rng, 200)
-    got = cuda_jacobian.jacobian_cuda_frames(convert.model_from_numpy(arrays),
+    got = cuda_jacobian.jacobian_cuda_frames(convert.model_from_numpy(arrays, device="cpu"),
                                              torch.as_tensor(pts), kernel, PT.LINEAR)
     want = pallas_jacobian.jacobian_pallas_frames(_jax(arrays), jnp.asarray(pts), kernel,
                                                   PT.LINEAR, tile_v=128, interpret=True)
@@ -105,13 +105,13 @@ def test_jacobian_tail(term):
     arrays = _arrays(rng, 40, n_frames=2)
     arrays["w_poly"] = arrays["w_poly"][:, :rows]
     pts = _points(rng, 64)
-    got = cuda_jacobian.jacobian_cuda_frames(convert.model_from_numpy(arrays),
+    got = cuda_jacobian.jacobian_cuda_frames(convert.model_from_numpy(arrays, device="cpu"),
                                              torch.as_tensor(pts), K.GAUSSIAN, term).numpy()
     want = pallas_jacobian.jacobian_pallas_frames(_jax(arrays), jnp.asarray(pts), K.GAUSSIAN,
                                                   term, tile_v=64, interpret=True)
     np.testing.assert_allclose(got, np.asarray(want), rtol=JAC_TOL, atol=JAC_TOL)
     bare = dict(arrays, w_poly=np.zeros((2, 0, 3), np.float32))
-    no_tail = cuda_jacobian.jacobian_cuda_frames(convert.model_from_numpy(bare),
+    no_tail = cuda_jacobian.jacobian_cuda_frames(convert.model_from_numpy(bare, device="cpu"),
                                                  torch.as_tensor(pts), K.GAUSSIAN, term).numpy()
     tail = got - no_tail
     if term == PT.LINEAR:
@@ -127,7 +127,7 @@ def test_jacobian_vertex_on_control_is_finite(kernel):
     rng = np.random.default_rng(7)
     arrays = _arrays(rng, 40, kernel=kernel)
     pts = np.concatenate([arrays["ctrl"][:4], _points(rng, 12)])
-    got = cuda_jacobian.jacobian_cuda(convert.model_from_numpy(arrays), torch.as_tensor(pts),
+    got = cuda_jacobian.jacobian_cuda(convert.model_from_numpy(arrays, device="cpu"), torch.as_tensor(pts),
                                       kernel, PT.LINEAR).numpy()
     assert np.isfinite(got).all()
     want = jjac.displacement_jacobian(_jax(arrays), jnp.asarray(pts), kernel, PT.LINEAR)
@@ -136,7 +136,7 @@ def test_jacobian_vertex_on_control_is_finite(kernel):
 
 def test_jacobian_chunked_sweep_matches_block():
     rng = np.random.default_rng(3)
-    model = convert.model_from_numpy(_arrays(rng, 30, 2))
+    model = convert.model_from_numpy(_arrays(rng, 30, 2), device="cpu")
     pts = torch.as_tensor(_points(rng, 1000))
     whole = tjac.jacobian_block(model, pts, K.GAUSSIAN, PT.LINEAR)
     chunked = tjac.displacement_jacobian(model, pts, K.GAUSSIAN, PT.LINEAR, chunk=128)
@@ -149,7 +149,7 @@ def test_jacobian_matches_float64_central_difference(kernel):
     rng = np.random.default_rng(11)
     arrays = _arrays(rng, 40, 2, kernel=kernel)
     pts = _points(rng, 100)
-    got = cuda_jacobian.jacobian_cuda(convert.model_from_numpy(arrays), torch.as_tensor(pts),
+    got = cuda_jacobian.jacobian_cuda(convert.model_from_numpy(arrays, device="cpu"), torch.as_tensor(pts),
                                       kernel, PT.LINEAR).numpy()
     want = oracle.jacobian_fd(*(arrays[k].astype(np.float64)
                                 for k in ("ctrl", "w_rbf", "w_poly", "eps")),
@@ -161,7 +161,7 @@ def test_jacobian_matches_float64_central_difference(kernel):
 def test_jacobian_wrappers_on_cpu_run_the_plain_version():
     rng = np.random.default_rng(5)
     arrays = _arrays(rng, 20, n_frames=3)
-    model = convert.model_from_numpy(arrays)
+    model = convert.model_from_numpy(arrays, device="cpu")
     pts = torch.as_tensor(_points(rng, 50))
     got = cuda_jacobian.jacobian_cuda_frames(model, pts, K.GAUSSIAN, PT.LINEAR)
     assert torch.equal(got, cuda_jacobian.jacobian_frames_reference(model, pts, K.GAUSSIAN,
@@ -333,7 +333,7 @@ def test_transport_frames_matches_jax(cfg_kw):
     kinds = ("normal", "vector", "quaternion")
     want = jbatched.transport_frames(jm, jnp.asarray(pts), values, jnp.asarray(w), jc, kinds,
                                      frame=tuple(map(jnp.asarray, frame)), want_stretch=True)
-    tm = convert.model_from_numpy({f: np.asarray(getattr(jm, f)) for f in jm._fields})
+    tm = convert.model_from_numpy({f: np.asarray(getattr(jm, f)) for f in jm._fields}, device="cpu")
     got = tbatched.transport_frames(tm, pts, values, w,
                                     convert.config_from_fields(dataclasses.asdict(jc)),
                                     kinds, frame=frame, want_stretch=True)

@@ -54,7 +54,7 @@ def _port(jc, params=PARAMS):
 def _to_port(model):
     return convert.model_from_numpy(
         {f: np.asarray(getattr(model, f)) for f in model._fields
-         if getattr(model, f) is not None})
+         if getattr(model, f) is not None}, device="cpu")
 
 
 def _rig(n, seed=0, scale=0.05):

@@ -127,7 +127,7 @@ def test_frames_twin_matches_jax_and_float64(kernel, n_frames, n_layers, with_lo
     want, want_w = jbatched.apply_frames(
         jfit.RBFModel(**{k: jnp.asarray(v) for k, v in arrays.items()}), jnp.asarray(pts),
         jnp.asarray(dist2), jnp.asarray(gate), jc, PARAMS, frame=tuple(map(jnp.asarray, frame)))
-    model = convert.model_from_numpy(arrays)
+    model = convert.model_from_numpy(arrays, device="cpu")
     assert (model.w_rbf_lo is not None) == with_lo
     tc, tp = _port(jc)
     before = (cuda_precise.evaluate_cuda_precise_frames.launches,
@@ -161,7 +161,7 @@ def test_frames_wrapper_on_cpu_runs_the_plain_version():
     nothing and builds nothing; a meta tensor is refused; frame_model
     carries each frame's lo words (None when the model has none)."""
     arrays = _shot_model(40, 2, 3, True, seed=5)
-    model = convert.model_from_numpy(arrays)
+    model = convert.model_from_numpy(arrays, device="cpu")
     pts, dist2, gate, frame = _mesh(90, seed=6)
     args = (model, torch.as_tensor(pts), torch.as_tensor(dist2), torch.as_tensor(gate), 1.0,
             1.5, K.CUBIC, TERM)

@@ -207,7 +207,7 @@ def test_pu_3xtf32_emulation_holds_twin_and_pallas(kernel):
     ray = np.float32([0.6, 0.8, 0.0])
     shell = (patches.centers[:3] + ray * patches.radii[:3, None] * 0.99995).astype(np.float32)
     q = np.concatenate([q, shell, np.float32([[0, 0, -3]])])    # + one forced fallback
-    model = convert.pu_model_from_numpy({f: np.asarray(getattr(jm, f)) for f in jm._fields})
+    model = convert.pu_model_from_numpy({f: np.asarray(getattr(jm, f)) for f in jm._fields}, device="cpu")
     frames = [model._replace(w_hi=model.w_hi * s, w_lo=model.w_lo * s,
                              poly_hi=model.poly_hi * s, poly_lo=model.poly_lo * s)
               for s in (1.0, -0.5)]
@@ -243,7 +243,7 @@ def _jac_fit(kernel):
 def test_jacobian_3xtf32_emulation_holds_twin_and_pallas(kernel):
     jc, jm = _jac_fit(kernel)
     arrays = {f: np.asarray(getattr(jm, f)) for f in ("ctrl", "w_rbf", "w_poly", "eps")}
-    model = convert.model_from_numpy(arrays)
+    model = convert.model_from_numpy(arrays, device="cpu")
     rng = np.random.default_rng(4)
     pts = rng.standard_normal((300, 3))
     pts *= rng.uniform(1.02, 1.15, (300, 1)) / np.linalg.norm(pts, axis=1, keepdims=True)
@@ -290,7 +290,7 @@ def test_recentered_form_avoids_the_moments_cancellation(kernel):
     off = np.float32([4.0, 0.0, 0.0])
     arrays = {f: np.asarray(getattr(jm, f)) for f in ("ctrl", "w_rbf", "w_poly", "eps")}
     arrays["ctrl"] = arrays["ctrl"] + off
-    model = convert.model_from_numpy(arrays)
+    model = convert.model_from_numpy(arrays, device="cpu")
     rng = np.random.default_rng(5)
     pts = rng.standard_normal((300, 3))
     pts *= rng.uniform(1.02, 1.15, (300, 1)) / np.linalg.norm(pts, axis=1, keepdims=True)

@@ -66,7 +66,7 @@ def test_diff_grads_match_jax(name, cfg, params, monkeypatch):
 
     want = jax.grad(jloss, argnums=(0, 1))(d.model.w_rbf, jnp.asarray(pts))
     model = convert.model_from_numpy({f: np.asarray(getattr(d.model, f))
-                                      for f in d.model._fields})
+                                      for f in d.model._fields}, device="cpu")
     w = model.w_rbf.clone().requires_grad_()
     p = torch.as_tensor(pts).requires_grad_()
     out, _ = cuda_eval.evaluate_cuda_diff(
@@ -97,7 +97,7 @@ def test_diff_all_input_grads_match_jax(name, cfg, params, monkeypatch):
     want = jax.grad(jloss, argnums=tuple(range(7)))(*jargs)
 
     model = convert.model_from_numpy({f: np.asarray(getattr(d.model, f))
-                                      for f in ("ctrl", "w_rbf", "w_poly", "eps")})
+                                      for f in ("ctrl", "w_rbf", "w_poly", "eps")}, device="cpu")
     leaves = [t.clone().requires_grad_() for t in
               (model.ctrl, model.w_rbf, model.w_poly, model.eps)]
     ins = [torch.as_tensor(a).requires_grad_() for a in (pts, dist2, gate)]
@@ -123,7 +123,7 @@ def test_diff_forward_and_plain_grads(name, cfg, params):
     d, pts, dist2, gate, frame = _setup(cfg, params, seed=3)
     kernel = effective_kernel(cfg)
     model = convert.model_from_numpy({f: np.asarray(getattr(d.model, f))
-                                      for f in ("ctrl", "w_rbf", "w_poly", "eps")})
+                                      for f in ("ctrl", "w_rbf", "w_poly", "eps")}, device="cpu")
     args = (torch.as_tensor(pts), torch.as_tensor(dist2), torch.as_tensor(gate), 2.0, 1.5)
     fr = tuple(map(torch.as_tensor, frame))
     got = cuda_eval.evaluate_cuda_diff(model, *args, fr, kernel, cfg.term, True)
