@@ -138,7 +138,23 @@
    applied at 1M, and loocv.autotune at 2000 controls with its Rippa
    errors against 20 float64 leave-one-out refits on the card; launch
    counters read around it (#1 and #2 must run);
-9. times fit, each kernel and its plain version (the dense and culled
+9. runs the node's cook, FaceDeformNode.cook, at phase 8's width (the 1M
+   sphere, 1000 markers in 8 classes, 52 blendshapes): 9a a cold cook
+   (capture, dofalloff, morphspace lstsq, update_normals,
+   transform_attrs=["v"], output_stretch), a warm cook and 16 drag cooks
+   (FitPlan refit), each cook's wall and stage split printed with the
+   dense/culled autotune's choice and timings; 9b symmetrize="x" with
+   pose-space deformation over 4 example poses and a cook at a fifth;
+   9c solver="pu" at 30k controls, cold and warm; 9d a TPS cook at 4096
+   controls; 9e two secondary meshes with recompute_normals; launch
+   counters read around the cooks (#1, #2, #5, #6 and #7 must run); then
+   a drag cook against a fresh node's cook of its pose, the RBF pass
+   against Deformer.apply on the autotune's backend bit for bit, the
+   transported N against the plain Jacobian route on 65536 vertices, a
+   PSD cook at an example pose against its sculpt, the card's cook
+   against the CPU's at 1602 vertices, and profiles of a warm and a drag
+   cook;
+10. times fit, each kernel and its plain version (the dense and culled
    kernels also alone, by the profiler, and the culled kernel's computed
    against needed pairs), the frames kernel (also alone, by the profiler,
    and its packing kernel against its twin) against 8 dense launches,
@@ -151,9 +167,9 @@
    1M x 30k and 1M x 20k x 8 frames with the pairs it computes against
    the pairs it needs, the PU fits and host plan builds, and profiles of
    the 30k PU fit and the PU kernel (facedeform_tpu_torch.benchmark);
-10. prints a kernels JSON line (per kernel its time, its plain version's,
+11. prints a kernels JSON line (per kernel its time, its plain version's,
    its bound from this run's inputs and which of bytes or operations binds
-   it, the launches of phases 6d, 6e and 8 by path, library_ms null: no single PyTorch call computes an RBF or PU
+   it, the launches of phases 6d, 6e, 8 and 9 by path, library_ms null: no single PyTorch call computes an RBF or PU
    field; the dense and culled kernels also their time alone, the culled
    kernel the pairs it computed, counted on the card, over the pairs it
    needs; the frames kernel its time alone, the larger of its tensor-core
@@ -169,7 +185,8 @@ kernels and --frames the frames eval kernel (1M x 1k x 8 and F = 1, 2, 16,
 17, 32; apply_frames per frame at F = 8 to 33) at their main-path shapes,
 each through entry points a parent commit has too, so that a parent
 checkout (the script copied into it) is timed by the same code; --krylov
-runs phases 6c, 6d and 6e alone, --capture phase 8 alone.
+runs phases 6c, 6d and 6e alone, --capture phase 8 alone, --node phase 9
+alone.
 """
 
 from __future__ import annotations
@@ -2293,7 +2310,7 @@ def main_path_pu(dev, label: str) -> dict:
     pts = torch.as_tensor(pts_np, device=dev)
     v = pts.shape[0]
 
-    cuda_pu.evaluate_pu_tiles_frames.launches = 0
+    cuda_pu.evaluate_pu_tiles.launches = 0
     t0 = time.perf_counter()
     d = pu.PUDeformer.fit(rest, frames[0], kernel=RBFKernel.THIN_PLATE, lam=1e-5, device=dev)
     torch.cuda.synchronize()
@@ -2301,11 +2318,11 @@ def main_path_pu(dev, label: str) -> dict:
     out = d.displacement(pts)
     torch.cuda.synchronize()
     t_disp = time.perf_counter() - t0 - t_fit
-    launches_mesh = cuda_pu.evaluate_pu_tiles_frames.launches
+    launches_mesh = cuda_pu.evaluate_pu_tiles.launches
     at_ctrl = d.displacement(rest)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = cuda_pu.evaluate_pu_tiles_frames.launches
+    launches = cuda_pu.evaluate_pu_tiles.launches
     k_, p_ = d.patches.idx.shape
     print(f"slice F main path (config 9): {wall:.3f} s wall (PUDeformer.fit of {len(rest)} "
           f"controls {t_fit:.3f} s: K={k_} patches of P={p_}; displacement at {v} verts incl. "
@@ -2451,8 +2468,14 @@ def main_path_pu_shot(dev, label: str) -> dict:
 
 
 def _profile(fn, label: str, top: int = 10) -> None:
-    """torch.profiler of one call: device kernel rows by self device time,
-    device busy share of the wall, and whether MAGMA kernels ran."""
+    """torch.profiler of one call: device rows by device time, the device's
+    busy share of the wall, and whether MAGMA kernels ran.  The rows are
+    the events that ran on the CUDA device (kernels, memcpy, memset),
+    kept by their kind and not by name, so no range annotated on the host
+    (utils/profiling.stage, record_function) counts as device work; busy
+    is the union of their intervals, and a busy time past the wall fails
+    the run."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2462,17 +2485,28 @@ def _profile(fn, label: str, top: int = 10) -> None:
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    dev_us = lambda e: getattr(e, "self_device_time_total", None) or getattr(  # noqa: E731
-        e, "self_cuda_time_total", 0)
-    rows = [e for e in prof.key_averages() if dev_us(e) > 0 and not e.key.startswith("aten::")]
-    rows.sort(key=dev_us, reverse=True)
-    busy = sum(dev_us(e) for e in rows) / 1e3
-    magma = [e.key for e in rows if "magma" in e.key.lower()]
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy_us, reach = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        if hi > reach:
+            busy_us += hi - max(lo, reach)
+            reach = hi
+    busy = busy_us / 1e3
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    magma = [k for k, _ in rows if "magma" in k.lower()]
     print(f"profile {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms (idle share "
-          f"{max(0.0, 1 - busy / wall):.3f}); MAGMA kernels: {len(magma)} "
+          f"{1 - busy / wall:.3f}); MAGMA kernels: {len(magma)} "
           f"({', '.join(sorted(set(magma))[:4]) or 'none'})")
-    for e in rows[:top]:
-        print(f"  {dev_us(e) / 1e3:10.3f} ms  x{e.count:<5d} {e.key[:110]}")
+    for name, (us, n) in rows[:top]:
+        print(f"  {us / 1e3:10.3f} ms  x{n:<5d} {name[:110]}")
+    _check(busy <= wall, f"profile {label}: device busy {busy:.3f} ms exceeds the wall "
+           f"{wall:.3f} ms: a range was counted as device work")
 
 
 def time_pu(main_f: dict, shot: dict, label: str) -> list:
@@ -3685,6 +3719,320 @@ def main_path_capture(dev, label: str, n_side: int = 1000, decimate_n: int = DEC
     return {"launches": launches, "wall_s": wall}
 
 
+# Phase 9, the node's cook: FaceDeformNode.cook, the entry point a user
+# calls, at the main path's width (the 1M sphere, phase 8's 1000 markers
+# in 8 classes and 52 blendshapes), capture -> solve -> eval (autotuned)
+# -> morph -> PSD -> transport -> secondaries.
+NODE_DRAGS = 16
+NODE_PSD_EXAMPLES = 4
+NODE_PU_N = 30_000
+NODE_TPS_N = 4096
+NODE_SUBSET = 65536
+NODE_SMALL_TOL = 5e-5      # of the motion scale: card vs CPU cook at test size
+
+
+def _node_inputs(mesh_cls, pts, faces, markers, classes, pose):
+    mesh = mesh_cls(points=pts, faces=faces)
+    rest = mesh_cls(points=markers)
+    rest.set_attr("class", classes)
+    return mesh, rest, mesh_cls(points=pose)
+
+
+def _cook_timed(node, inputs, cfg, params, dev, **kw):
+    """(CookResult, wall s, StageTimes) of one cook; the cook ends in host
+    copies, the synchronize fences anything left."""
+    from facedeform_tpu_torch.utils.profiling import StageTimes
+
+    times = StageTimes()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = node.cook(inputs, cfg, params, times=times, **kw)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, times
+
+
+def _node_small_check(dev, label: str) -> float:
+    """The card's cook against the port's CPU cook at test size
+    (uv_sphere(40, 40), 30 markers): capture, morph, transport; returns
+    the error over the motion scale."""
+    from facedeform_tpu_torch import DeformConfig, DeformParams, FaceDeformNode, Mesh
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points, uv_sphere
+
+    sphere = uv_sphere(40, 40)
+    pts = sphere.points
+    markers = fibonacci_points(30)
+    bump = 0.2 * np.exp(-2 * np.sum((markers - [0, 1, 0]) ** 2, -1, keepdims=True))
+    pose = (markers + bump * np.float32([0.3, 1.0, 0.0])).astype(np.float32)
+    shapes = _bump_shapes(pts, 3, seed=5)
+    rng = np.random.default_rng(9)
+    v_attr = rng.standard_normal(pts.shape).astype(np.float32)
+    cfg = DeformConfig(dofalloff=True, morphspace=True)
+    params = DeformParams(radius=0.8, maxedges=8, falloffradius=0.5)
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        mesh, rest, posed = _node_inputs(Mesh, pts, sphere.faces, markers,
+                                         (np.arange(30) % 3).astype(np.int32), pose)
+        mesh.set_attr("N", (pts / np.linalg.norm(pts, axis=1, keepdims=True)).astype(np.float32))
+        mesh.set_attr("v", v_attr)
+        res = FaceDeformNode(device=where).cook(
+            [mesh, rest, posed] + [Mesh(points=s) for s in shapes], cfg, params,
+            update_normals=True, transform_attrs=["v"], output_stretch=True)
+        out[where.type] = res
+    card, cpu = out[dev.type], out["cpu"]
+    scale = float(np.abs(cpu.mesh.points - pts).max())
+    err = float(np.abs(card.mesh.points.astype(np.float64) - cpu.mesh.points).max()) / scale
+    e_n = float(np.abs(card.mesh.attr("N") - cpu.mesh.attr("N")).max())
+    e_w = float(np.abs(card.mesh.attr("fd_falloff") - cpu.mesh.attr("fd_falloff")).max())
+    print(f"9 test size ({len(pts)} verts x 30 markers, capture + morph + transport): card "
+          f"vs CPU cook max |dP| {err:.3e} of scale {scale:.3e} (tol {NODE_SMALL_TOL:g}); "
+          f"N {e_n:.3e}, fd_falloff {e_w:.3e}  [{label}]", flush=True)
+    _check(err <= NODE_SMALL_TOL, "the card's cook disagrees with the CPU cook at test size")
+    _check(e_w <= FALLOFF_TOL and card.warnings == cpu.warnings,
+           "the card's cook's falloff or warnings differ from the CPU cook's")
+    return err
+
+
+def main_path_node(dev, label: str, n_side: int = 1000, pu_n: int = NODE_PU_N,
+                   tps_n: int = NODE_TPS_N, n_shapes: int = DBSE_SHAPES) -> dict:
+    """Phase 9: the node's cook at the main path's width.  9a a cold cook
+    (capture with the 1000 markers in 8 classes, dofalloff, morphspace
+    lstsq over 52 blendshapes, update_normals, transform_attrs=["v"],
+    output_stretch), a warm cook and NODE_DRAGS drag cooks (FitPlan
+    refit); 9b symmetrize="x" with PSD over NODE_PSD_EXAMPLES example
+    poses and a cook at a further pose; 9c solver="pu" at pu_n controls,
+    cold and warm (plan cached); 9d a TPS cook at tps_n controls; 9e two
+    secondary meshes with recompute_normals (the keywords cut the sizes
+    for a rehearsal on the CPU).  Launch
+    counters are set to 0 just before the cooks and read just after them,
+    before the checks: a drag cook against a fresh node's cook of the
+    same pose, the RBF pass against Deformer.apply on the autotune's
+    backend bit for bit, the transported N against the plain Jacobian
+    route on a NODE_SUBSET-vertex subset, a PSD cook at an example pose
+    against its sculpt, and the card's cook against the CPU's at test
+    size."""
+    from facedeform_tpu_torch import DeformConfig, DeformParams, FaceDeformNode, Mesh
+    from facedeform_tpu_torch.config import RBFKernel, RBFModelType
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points, uv_sphere
+    from facedeform_tpu_torch.ops import cuda_eval, cuda_jacobian, cuda_precise, cuda_pu
+    from facedeform_tpu_torch.ops import jacobian as jac_mod
+    from facedeform_tpu_torch.ops.fit import effective_kernel
+
+    counters = (cuda_eval.evaluate_cuda, cuda_eval.evaluate_cuda_culled,
+                cuda_eval.control_records, cuda_eval.culled_tables,
+                cuda_precise.evaluate_cuda_precise, cuda_jacobian.jacobian_cuda,
+                cuda_jacobian.jacobian_cuda_frames, cuda_pu.evaluate_pu_tiles,
+                cuda_pu.evaluate_pu_tiles_frames)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(9)
+    sphere = uv_sphere(n_side, n_side)
+    pts = sphere.points
+    v = len(pts)
+    normals = (pts / np.linalg.norm(pts, axis=1, keepdims=True)).astype(np.float32)
+    v_attr = rng.standard_normal(pts.shape).astype(np.float32)
+    markers = fibonacci_points(CAPTURE_MARKERS)
+    classes = _octants(markers)
+    pose0 = markers + 0.05 * rng.standard_normal(markers.shape).astype(np.float32)
+    shapes = [Mesh(points=s) for s in _bump_shapes(pts, n_shapes, seed=8)]
+
+    def inputs(pose):
+        mesh, rest, posed = _node_inputs(Mesh, pts, sphere.faces, markers, classes, pose)
+        mesh.set_attr("N", normals)
+        mesh.set_attr("v", v_attr)
+        return mesh, rest, posed
+
+    def drags(start, n):
+        pose = start
+        for _ in range(n):
+            pose = pose.copy()
+            moved = rng.choice(len(pose), 10, replace=False)
+            pose[moved] += 0.01 * rng.standard_normal((10, 3)).astype(np.float32)
+            yield pose
+
+    mesh, rest, posed = inputs(pose0)
+    cfg = DeformConfig(dofalloff=True, morphspace=True)
+    params = DeformParams(radius=CAPTURE_RADIUS, maxedges=CAPTURE_MAXEDGES)
+    kw = dict(update_normals=True, transform_attrs=["v"], output_stretch=True)
+    t_setup = time.perf_counter() - t_phase
+    for fn in counters:
+        fn.launches = 0
+    t_cooks = time.perf_counter()
+    walls = {}
+
+    def show(name, res, wall, times, extra=""):
+        walls[name] = wall
+        print(f"9 cook {name}: {1e3 * wall:.2f} ms wall; stages {times.summary()}; outside "
+              f"them {1e3 * wall - sum(times.ms.values()):.2f} ms{extra}  [{label}]", flush=True)
+
+    # ---- 9a cold, warm, drags
+    node = FaceDeformNode(device=dev)
+    res_cold, wall, times = _cook_timed(node, [mesh, rest, posed] + shapes, cfg, params, dev, **kw)
+    show("9a cold", res_cold, wall, times)
+    backend, timings = node.last_backend, dict(node.backend_timings)
+    print(f"9a autotune at {v} verts x {CAPTURE_MARKERS}: chose {backend!r}; best of 2 after a "
+          f"warm-up (CUDA events): " + ", ".join(f"{k} {ms:.4f} ms" for k, ms in timings.items())
+          + f"  [{label}]", flush=True)
+    res_warm, wall, times = _cook_timed(node, [mesh, rest, posed] + shapes, cfg, params, dev, **kw)
+    show("9a warm", res_warm, wall, times)
+    drag_ms, drag_times = [], []
+    for pose in drags(pose0, NODE_DRAGS):
+        res_drag, wall, times = _cook_timed(node, [mesh, rest, Mesh(points=pose)] + shapes,
+                                            cfg, params, dev, **kw)
+        drag_ms.append(1e3 * wall)
+        drag_times.append(times)
+        print(f"9a drag {len(drag_ms)}: {drag_ms[-1]:.2f} ms wall; stages {times.summary()}; "
+              f"outside them {drag_ms[-1] - sum(times.ms.values()):.2f} ms", flush=True)
+    last_pose = pose
+    plan_kept = node._fit_plan is not None
+    print(f"9a {NODE_DRAGS} drag cooks: {min(drag_ms):.2f} ms best, {float(np.median(drag_ms)):.2f}"
+          f" median wall; the FitPlan refit each time: {plan_kept}  [{label}]", flush=True)
+    # the RBF pass alone (morphspace off, no transport): the same deformer
+    rbf_node_res, wall, times = _cook_timed(node, [mesh, rest, Mesh(points=last_pose)],
+                                            DeformConfig(dofalloff=True), params, dev)
+    show("9a RBF only (warm)", rbf_node_res, wall, times)
+    rbf_backend = node.last_backend
+
+    # ---- 9b symmetrize + PSD
+    def sculpt(k):
+        c = fibonacci_points(16)[3 * k + 1]
+        g = np.exp(-np.sum((pts - c) ** 2, -1) / 0.1)
+        return Mesh(points=(pts + 0.03 * (k + 1) * g[:, None] * normals).astype(np.float32))
+
+    ex_poses = [markers + (0.04 * rng.standard_normal(markers.shape)).astype(np.float32)
+                for _ in range(NODE_PSD_EXAMPLES)]
+    examples = [(Mesh(points=p), sculpt(k)) for k, p in enumerate(ex_poses)]
+    cfg_b = DeformConfig(dofalloff=True)
+    node_b = FaceDeformNode(device=dev)
+    mesh_b, rest_b, _ = inputs(pose0)
+    res_b_ex, wall, times = _cook_timed(node_b, [mesh_b, rest_b, examples[0][0]], cfg_b, params,
+                                        dev, symmetrize="x", examples=examples)
+    show("9b symmetrize + PSD fit, at example 0", res_b_ex, wall, times,
+         f"; {res_b_ex.messages[0]}; {res_b_ex.messages[-1]}")
+    fifth = markers + (0.04 * rng.standard_normal(markers.shape)).astype(np.float32)
+    res_b, wall, times = _cook_timed(node_b, [mesh_b, rest_b, Mesh(points=fifth)], cfg_b, params,
+                                     dev, symmetrize="x", examples=examples)
+    show("9b symmetrize + PSD at a fifth pose", res_b, wall, times,
+         f"; psd_weights {np.round(res_b.mesh.detail_attrs['psd_weights'], 4).tolist()}")
+
+    # ---- 9c PU
+    pu_rest, pu_frames = _bump_rig(pu_n)
+    cfg_c = DeformConfig(model=RBFModelType.KERNEL, kernel=RBFKernel.THIN_PLATE, solver="pu")
+    params_c = DeformParams(lam=1e-5)
+    node_c = FaceDeformNode(device=dev)
+    mesh_c = Mesh(points=pts, faces=sphere.faces)
+    pu_in = [mesh_c, Mesh(points=pu_rest), Mesh(points=pu_frames[0])]
+    res_c, wall, times = _cook_timed(node_c, pu_in, cfg_c, params_c, dev)
+    show(f"9c PU at {pu_n} (cold)", res_c, wall, times)
+    res_c2, wall, times = _cook_timed(node_c, pu_in, cfg_c, params_c, dev)
+    show(f"9c PU at {pu_n} (warm, plan cached)", res_c2, wall, times)
+
+    # ---- 9d TPS
+    tps_rest = fibonacci_points(tps_n)
+    tps_pose = (tps_rest + 0.05 * np.sin(3.0 * tps_rest[:, [1, 2, 0]])).astype(np.float32)
+    cfg_d = DeformConfig(model=RBFModelType.KERNEL, kernel=RBFKernel.THIN_PLATE)
+    node_d = FaceDeformNode(device=dev)
+    tps_in = [Mesh(points=pts, faces=sphere.faces), Mesh(points=tps_rest), Mesh(points=tps_pose)]
+    res_d, wall, times = _cook_timed(node_d, tps_in, cfg_d, DeformParams(radius=1.0, lam=0.01), dev)
+    show(f"9d TPS at {tps_n}", res_d, wall, times)
+
+    # ---- 9e secondaries
+    acc = uv_sphere(200, 200)
+    secondary = [Mesh(points=(0.3 * acc.points + np.float32(c)).astype(np.float32),
+                      faces=acc.faces) for c in ((0.3, 0.5, 0.7), (-0.3, 0.5, 0.7))]
+    res_e, wall, times = _cook_timed(node, [mesh, rest, Mesh(points=last_pose)] + shapes, cfg,
+                                     params, dev, secondary=secondary, recompute_normals=True)
+    show(f"9e two secondaries of {secondary[0].num_points} verts + recompute_normals", res_e,
+         wall, times)
+    t_cooks = time.perf_counter() - t_cooks
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print(f"node cook: launches {launches}  [{label}]", flush=True)
+
+    # ---- checks (their launches are not counted)
+    for name, res in (("cold", res_cold), ("warm", res_warm), ("drag", res_drag),
+                      ("psd", res_b), ("pu", res_c2), ("tps", res_d), ("secondary", res_e)):
+        _check(res.mesh.points.shape == (v, 3) and bool(np.isfinite(res.mesh.points).all()),
+               f"9 {name}: the cook's P is not finite of shape (V, 3)")
+        _check(not res.warnings, f"9 {name}: warnings {res.warnings}")
+    _check(plan_kept, "the drag cooks did not keep the FitPlan")
+    _check(res_warm.weights is not None and res_warm.weights.shape == (n_shapes,),
+           "the warm cook did not morph")
+    _check(set(res_warm.transported) == {"N", "v", "fd_stretch", "fd_compress"},
+           f"the warm cook transported {res_warm.transported}")
+    _check(all(s.num_points == secondary[0].num_points and np.isfinite(s.points).all()
+               and "N" in s.point_attrs for s in res_e.secondary),
+           "the secondaries' outputs are not finite or lack N")
+    # a drag cook against a fresh node's cook of the same pose
+    fresh = FaceDeformNode(device=dev).cook([mesh, rest, Mesh(points=last_pose)] + shapes,
+                                           cfg, params, **kw)
+    scale = float(np.abs(fresh.mesh.points - pts).max())
+    e_drag = float(np.abs(res_drag.mesh.points.astype(np.float64) - fresh.mesh.points).max())
+    print(f"9a last drag cook vs a fresh node's cook of its pose: max |dP| {e_drag:.3e} (tol "
+          f"{ORACLE_BUDGET:g} x scale {scale:.3e}; bit for bit: {e_drag == 0.0})", flush=True)
+    _check(e_drag <= ORACLE_BUDGET * scale, "a drag cook disagrees with a fresh node's cook")
+    # the RBF pass against Deformer.apply on the autotune's backend
+    d = node._deformer
+    pts_t = torch.as_tensor(pts, device=dev)
+    d2 = torch.as_tensor(res_cold.capture.dist2, device=dev)
+    want, want_w = d.apply(pts_t, dist2=d2, backend=rbf_backend)
+    same = (np.array_equal(rbf_node_res.mesh.points, want.cpu().numpy())
+            and np.array_equal(rbf_node_res.mesh.attr("fd_falloff"), want_w.cpu().numpy()))
+    print(f"9a the node's RBF pass vs Deformer.apply(backend={rbf_backend!r}): bit for bit "
+          f"{same}", flush=True)
+    _check(same and (dev.type != "cuda" or rbf_backend in ("cuda", "cuda_culled")),
+           "the node's RBF pass differs from Deformer.apply on the autotune's backend")
+    # the transported N of the last drag cook against the plain Jacobian
+    # route (displacement_jacobian) composed with the same morph map
+    idx = torch.linspace(0, v - 1, NODE_SUBSET, device=dev).long()
+    nbr, coeff = node._transport_grad_plan(mesh, dev)
+    rbf_pts = torch.as_tensor(rbf_node_res.mesh.points, device=dev)
+    final = torch.as_tensor(res_drag.mesh.points, device=dev)
+    gamma = float(params.falloffradius)
+    from facedeform_tpu_torch.ops.jacobian import apply_field_gradient
+
+    g_blend = apply_field_gradient(final - pts_t - gamma * (rbf_pts - pts_t), nbr, coeff)[idx]
+    w_sub = torch.as_tensor(res_drag.mesh.attr("fd_falloff"), device=dev)[idx]
+    jac = jac_mod.displacement_jacobian(d.model, pts_t[idx], effective_kernel(d.cfg), d.cfg.term)
+    eye = torch.eye(3, device=dev)
+    f_plain = eye + g_blend + gamma * (jac_mod.deformation_gradient(jac, w_sub) - eye)
+    n_plain = jac_mod.transform_normals(torch.as_tensor(normals, device=dev)[idx], f_plain)
+    sigma_min = torch.clamp(jac_mod.principal_stretches(f_plain).amin(-1), max=1.0)
+    n_node = torch.as_tensor(res_drag.mesh.attr("N"), device=dev)[idx]
+    diff = torch.abs(n_node - n_plain).amax(-1)
+    t_err = float(torch.max(diff * sigma_min))
+    print(f"9a transported N (Jacobian kernel, morph map) vs the plain displacement_jacobian "
+          f"route on {NODE_SUBSET} verts: max |d| x min(1, sigma_min) {t_err:.3e} (tol "
+          f"{TRANSPORT_TOL:g}), max |d| {float(diff.max()):.3e}", flush=True)
+    _check(t_err <= TRANSPORT_TOL, "the node's transported N disagrees with the plain route")
+    # a PSD cook at an example pose reproduces its sculpt
+    sc = examples[0][1].points
+    scale_b = float(np.abs(sc - pts).max())
+    e_psd = float(np.abs(res_b_ex.mesh.points.astype(np.float64) - sc).max())
+    print(f"9b PSD cook at example pose 0 vs its sculpt: max |dP| {e_psd:.3e} (tol "
+          f"{ORACLE_BUDGET:g} x scale {scale_b:.3e}); weights "
+          f"{np.round(res_b_ex.mesh.detail_attrs['psd_weights'], 6).tolist()}", flush=True)
+    _check(e_psd <= ORACLE_BUDGET * scale_b, "a PSD cook at an example pose misses its sculpt")
+    e_small = _node_small_check(dev, label)
+    if dev.type == "cuda":
+        # where a warm cook's and a drag cook's time goes: device kernel
+        # rows and the device's idle share of the wall (after the counters)
+        warm_in = [mesh, rest, Mesh(points=last_pose)] + shapes
+        _profile(lambda: node.cook(warm_in, cfg, params, **kw), "9a warm cook")
+        more = drags(last_pose, 2)
+        _profile(lambda: node.cook([mesh, rest, Mesh(points=next(more))] + shapes, cfg, params,
+                                   **kw), "9a drag cook")
+    wall = time.perf_counter() - t_phase
+    print(f"node cook: {wall:.1f} s wall (set-up {t_setup:.1f} s, cooks {t_cooks:.1f} s)  "
+          f"[{label}]", flush=True)
+    for name, counter in (("#1 dense", "evaluate_cuda"), ("#2 culled", "evaluate_cuda_culled"),
+                          ("#5 precise", "evaluate_cuda_precise"), ("#6 jacobian", "jacobian_cuda"),
+                          ("#7 PU tiles", "evaluate_pu_tiles")):
+        _check(dev.type != "cuda" or launches[counter] > 0,
+               f"the node cook did not launch kernel {name}")
+    return {"launches": launches, "walls": walls, "drag_ms": drag_ms, "backend": backend,
+            "timings": timings, "e_small": e_small, "wall_s": wall}
+
+
 def _ptxas_summary(log: str) -> list:
     """One line per compiled kernel: name<template args>, registers, spills."""
     lines, name = [], None
@@ -3749,6 +4097,10 @@ def main() -> int:
         # the capture chain (phase 8) alone
         main_path_capture(dev, label)
         return 0
+    if "--node" in sys.argv[1:]:
+        # the node's cook (phase 9) alone
+        main_path_node(dev, label)
+        return 0
 
     check_kernels(dev)
     check_pack_kernels(dev)
@@ -3769,18 +4121,23 @@ def main() -> int:
     drag = main_path_drag(dev, label)
     torch.cuda.empty_cache()
     chain = main_path_capture(dev, label)
+    torch.cuda.empty_cache()
+    node = main_path_node(dev, label)
     kernels = (time_kernels(main, label) + time_frames(main_b, label)
                + time_precise(main_c, label) + time_pu(main_f, shot_f, label))
     # the kernels the large-rig, drag and capture-chain paths launched, by
     # path (each path's counters set to 0 just before it and read just after)
     paths = {"large rigs": large["launches"],
              **{f"drag {k}": v["launches"] for k, v in drag.items() if "launches" in v},
-             "capture chain": chain["launches"]}
+             "capture chain": chain["launches"], "node cook": node["launches"]}
     counter_of = {"eval_dense": "evaluate_cuda", "eval_culled": "evaluate_cuda_culled",
                   "eval_records": "control_records", "culled_tables": "culled_tables",
                   "eval_frames": "evaluate_cuda_frames", "frames_stream": "frames_stream",
                   "eval_precise": "evaluate_cuda_precise",
-                  "eval_precise_frames": "evaluate_cuda_precise_frames"}
+                  "eval_precise_frames": "evaluate_cuda_precise_frames",
+                  "jacobian": "jacobian_cuda_frames", "jacobian_single": "jacobian_cuda",
+                  "pu_tiles": "evaluate_pu_tiles",
+                  "pu_tiles_frames": "evaluate_pu_tiles_frames"}
     for k in kernels:
         counter = counter_of.get(k["name"])
         if counter:

@@ -25,6 +25,13 @@ Same math and public names as the JAX package (which stays the reference):
   ops.decimate, ops.loocv      — rig decimation (select_markers,
                                  reduce_rig, fit_reduced) and LOOCV
                                  radius selection (autotune, fit_auto)
+  FaceDeformNode / CookResult  — the node's cook: capture -> solve (FitPlan
+                                 refit on a drag) -> eval (dense/culled
+                                 autotune) -> DBSE morph -> pose-space
+                                 correction (ops.psd) -> attribute
+                                 transport -> secondary meshes, with
+                                 symmetry (ops.symmetry) and stage timing
+                                 (utils.profiling)
 The GPU kernels (dense, culled and frames eval, Jacobian, and the float64
 precise eval of the growing kernels) are CUDA C++ in csrc/, compiled for
 sm_90a at first use (ops/cuda_eval.py); importing the package builds
@@ -41,6 +48,7 @@ from facedeform_tpu_torch.config import (
 )
 from facedeform_tpu_torch.deformer import Deformer, FitPlan
 from facedeform_tpu_torch.geometry import Mesh, load_mesh, save_mesh
+from facedeform_tpu_torch.node import CookResult, FaceDeformNode
 from facedeform_tpu_torch.models import (
     KernelZooDeformModel,
     MultilayerDeformModel,
@@ -57,10 +65,12 @@ __all__ = [
     "BlendshapeModel",
     "CaptureError",
     "CaptureResult",
+    "CookResult",
     "DBSEModel",
     "DeformConfig",
     "DeformParams",
     "Deformer",
+    "FaceDeformNode",
     "FitPlan",
     "KernelZooDeformModel",
     "Mesh",

@@ -18,10 +18,11 @@ A partition-of-unity model and its patches carry over the same way:
                                  for f in jax_model._fields}, device)
     patches = pu_patches_from_numpy(jax_patches._asdict())
 
-Host geometry, a DBSE basis, a blendshape bake and a capture result carry
-over the same way (mesh_from_fields, dbse_model_from_numpy,
-blendshape_model_from_numpy, capture_result_from_numpy), so both packages
-compute from the same state:
+Host geometry, a DBSE basis, a blendshape bake, a capture result and a
+pose-space (PSD) model carry over the same way (mesh_from_fields,
+dbse_model_from_numpy, blendshape_model_from_numpy,
+capture_result_from_numpy, psd_model_from_numpy), so both packages compute
+from the same state (a PSDDeformer wraps the model for cook(psd=...)):
 
     mesh = mesh_from_fields(dataclasses.asdict(jax_mesh))
     dbse = dbse_model_from_numpy({f: np.asarray(getattr(jax_dbse, f))
@@ -43,6 +44,7 @@ from facedeform_tpu_torch.geometry.mesh import Mesh
 from facedeform_tpu_torch.ops.blendshapes import BlendshapeModel
 from facedeform_tpu_torch.ops.dbse import DBSEModel
 from facedeform_tpu_torch.ops.fit import RBFModel
+from facedeform_tpu_torch.ops.psd import PSDModel
 from facedeform_tpu_torch.ops.pu import PUModel, PUPatches
 
 
@@ -135,3 +137,12 @@ def capture_result_from_numpy(fields: Mapping[str, Any]) -> CaptureResult:
         color=np.array(fields["color"], np.float32, copy=True),
         seed_vertices=np.array(fields["seed_vertices"], np.int64, copy=True),
     )
+
+
+def psd_model_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> PSDModel:
+    """PSDModel from {field: array} (the JAX PSDModel's: features, alpha,
+    corrections, eps), float32 on `device`."""
+    return PSDModel(**{
+        f: torch.tensor(np.asarray(arrays[f], np.float32), device=device)
+        for f in PSDModel._fields
+    })

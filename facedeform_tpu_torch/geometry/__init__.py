@@ -4,7 +4,8 @@ interchange IO.
 `load_mesh`/`save_mesh` dispatch by extension: Houdini JSON `.geo`/
 `.hgeo` (geo_io.py), else Wavefront OBJ with the `.attrs.npz` sidecar
 (obj_io.py).  glTF binary `.glb` is not ported yet: its reader imports
-the skinning op, which comes with ROADMAP queue 1 item 6.
+the skinning op, which comes with the skinning, glTF and checkpoint slice
+of ROADMAP queue 1.
 """
 
 from facedeform_tpu_torch.geometry.mesh import Mesh  # noqa: F401
@@ -16,7 +17,8 @@ def _no_glb(path: str) -> None:
     if path.lower().endswith(".glb"):
         raise NotImplementedError(
             f"{path}: glTF (.glb) I/O is not ported yet; it comes with the "
-            "skinning op (ROADMAP queue 1 item 6) - use .geo/.hgeo or .obj"
+            "skinning op (ROADMAP queue 1: the skinning, glTF and checkpoint "
+            "slice) - use .geo/.hgeo or .obj"
         )
 
 

@@ -19,9 +19,8 @@ controls (_pack_launch); one pose it contracts on the CUDA cores, so a
 frame of a shot equals its one-pose launch within the kernel's tolerance,
 not bit for bit (frames of any two shot launches are bit-equal).  The
 wrapper runs the plain twin only for tensors on the CPU; for CUDA tensors
-it launches the kernel or raises.  It counts its
-launches in evaluate_pu_tiles_frames.launches (the one-pose entry
-delegates to it).  The kernel is built with the others by
+it launches the kernel or raises.  Each entry counts its own launches,
+in evaluate_pu_tiles.launches and evaluate_pu_tiles_frames.launches.  The kernel is built with the others by
 ops.cuda_eval.build().
 """
 
@@ -277,17 +276,13 @@ def evaluate_pu_tiles_reference(models, points, plan: PUTilePlan,
     return out_z[inv_perm.long()].reshape(v, f_n, 3).transpose(0, 1).contiguous()
 
 
-def evaluate_pu_tiles_frames(models, points, plan: PUTilePlan,
-                             kernel: RBFKernel) -> torch.Tensor:
-    """(F, V, 3) PU displacement of F frames through one tile plan: phi and
-    the partition weights once per (tile, patch) item, contracted against
-    all 3F weight columns, up to FRAMES_PER_LAUNCH frames a launch.
-    `models` share geometry (fit_pu_frames output); `plan` was built by
-    plan_eval_tiles for these points."""
+def _tiles(models, points, plan: PUTilePlan, kernel: RBFKernel, counter) -> torch.Tensor:
+    """(F, V, 3) through the plain twin on CPU tensors, else the kernel;
+    each launch adds one to `counter.launches`."""
     if points.device.type == "cpu":
         return evaluate_pu_tiles_reference(models, points, plan, kernel)
     if points.device.type != "cuda":
-        raise ValueError(f"evaluate_pu_tiles_frames takes CPU or CUDA tensors, got {points.device}")
+        raise ValueError(f"{counter.__name__} takes CPU or CUDA tensors, got {points.device}")
     _check_plan(points, plan)
     tile_v, num_points = plan.tile_v, plan.num_points
     if tile_v != KERNEL_TILE_V:
@@ -325,8 +320,18 @@ def evaluate_pu_tiles_frames(models, points, plan: PUTilePlan,
             )
             if err != 0:
                 raise RuntimeError(f"fd_pu_tiles launch failed: CUDA error {err}")
-            evaluate_pu_tiles_frames.launches += 1
+            counter.launches += 1
     return out
+
+
+def evaluate_pu_tiles_frames(models, points, plan: PUTilePlan,
+                             kernel: RBFKernel) -> torch.Tensor:
+    """(F, V, 3) PU displacement of F frames through one tile plan: phi and
+    the partition weights once per (tile, patch) item, contracted against
+    all 3F weight columns, up to FRAMES_PER_LAUNCH frames a launch.
+    `models` share geometry (fit_pu_frames output); `plan` was built by
+    plan_eval_tiles for these points."""
+    return _tiles(models, points, plan, kernel, evaluate_pu_tiles_frames)
 
 
 evaluate_pu_tiles_frames.launches = 0
@@ -335,4 +340,7 @@ evaluate_pu_tiles_frames.launches = 0
 def evaluate_pu_tiles(model, points, plan: PUTilePlan, kernel: RBFKernel) -> torch.Tensor:
     """Scatter-free PU displacement (V, 3) in the caller's point order: the
     F = 1 case of evaluate_pu_tiles_frames (one launch on the card)."""
-    return evaluate_pu_tiles_frames((model,), points, plan, kernel)[0]
+    return _tiles((model,), points, plan, kernel, evaluate_pu_tiles)[0]
+
+
+evaluate_pu_tiles.launches = 0

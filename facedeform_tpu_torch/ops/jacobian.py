@@ -13,9 +13,10 @@ J assembles from two contractions per layer, with g = 2 phi'(s) / eps^2:
     J[v,a,b] = (sum_lj g w)[va] x[vb] - (sum_lj g (w outer c))[vab]
 
 This is the plain path: the CPU route and the twin of the CUDA Jacobian
-kernel (ops/cuda_jacobian.py).  The mesh-gradient part of the JAX module
-(field_gradient_plan, apply_field_gradient, mesh_field_gradient) needs
-the geometry/topology port and is not here yet.
+kernel (ops/cuda_jacobian.py).  The mesh field gradient
+(field_gradient_plan, apply_field_gradient, mesh_field_gradient) is the
+least-squares gradient of a discrete per-vertex field over mesh 1-rings,
+for fields with no closed-form Jacobian (the node's morph and PSD passes).
 """
 
 from __future__ import annotations
@@ -58,6 +59,95 @@ def displacement_jacobian(model, points: torch.Tensor, kernel: RBFKernel, term: 
     return torch.cat([
         jacobian_block(model, p, kernel, term) for p in torch.split(points, chunk)
     ])
+
+
+#: degree cap for the transport neighbor table (padded_neighbors
+#: max_degree=): the 1-ring LSQ gradient only needs a tangent-plane-
+#: spanning subset, and the (V, Dmax, 3) gather temps scale with the
+#: WORST degree (a 1M uv-sphere's poles have degree ~1000: ~12 GB
+#: uncapped, ~200 MB at 16).  padded_neighbors stride-subsamples capped
+#: rings, so they stay angularly spread.
+TRANSPORT_MAX_DEGREE = 16
+
+
+def _ring_outer(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_d a[v, d, i] b[v, d, j] of (V, D, 3) stacks; (V, 3, 3).  A
+    broadcast multiply and a sum over the ring: elementwise f32 has no
+    TF32 path, and a million 3 x D x 3 batched GEMMs cost more on the GPU
+    (see _matmul33)."""
+    return torch.sum(a[:, :, :, None] * b[:, :, None, :], dim=1)
+
+
+def field_gradient_plan(points: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+    """The 1-ring least-squares gradient COEFFICIENTS c[v, d] =
+    M_v^-1 (s_v e_vd); (V, D, 3).
+
+    The LSQ gradient is linear in the field, G_v = sum_d u_vd (x) c_vd
+    with u the neighbor field differences, so everything that depends only
+    on the geometry (the edge gather, the Gram, its Cholesky solve) is
+    this per-mesh plan, and apply_field_gradient's per-cook cost is one
+    (V, D) gather and one contraction.
+
+    Ridge: pole-adjacent uv-grid cells reach ~160:1 anisotropy, putting
+    the smallest tangential Gram eigenvalue at ~4e-5 of the trace.  A
+    1e-4 relative ridge sat above it and wiped out the azimuthal gradient
+    there (a transported-normal error of 0.026 on a 1M uv-sphere); 3e-7
+    keeps the whole tangent plane while staying ~3x above the f32 Gram
+    noise floor.  The along-normal derivative is whatever the ring's
+    curvature supports; the cofactor normal rule never reads it.
+
+    Solved by a closed-form 3x3 Cholesky of the trace-normalized Gram
+    (backward stable for PD matrices without pivoting; clamped pivots
+    absorb the rank-2 + ridge edge): elementwise operations, where a
+    batched linear solve of a million 3x3 systems dominated the pass.
+    Padded self-slots give e = 0, so c = 0 there: they stay inert.
+    """
+    points = points.float()
+    nbr = nbr.long()
+    e = points[nbr] - points[:, None, :]                  # (V, D, 3)
+    a = _ring_outer(e, e)                                 # E E^T (V, 3, 3)
+    tr = a[:, 0, 0] + a[:, 1, 1] + a[:, 2, 2]
+    s = 1.0 / (tr + 1e-30)                                # scale-invariant
+    m = a * s[:, None, None] + 3e-7 * torch.eye(3, dtype=a.dtype, device=a.device)
+    rhs = e * s[:, None, None]                            # (V, D, 3)
+    # closed-form Cholesky m = L L^T (m normalized: diag in [3e-7, 1])
+    eps = 1e-12
+    l11 = torch.sqrt(torch.clamp(m[:, 0, 0], min=eps))
+    l21 = m[:, 1, 0] / l11
+    l31 = m[:, 2, 0] / l11
+    l22 = torch.sqrt(torch.clamp(m[:, 1, 1] - l21 * l21, min=eps))
+    l32 = (m[:, 2, 1] - l31 * l21) / l22
+    l33 = torch.sqrt(torch.clamp(m[:, 2, 2] - l31 * l31 - l32 * l32, min=eps))
+    # m c = rhs_d per slot: L y = r, L^T c = y, batched over the D slots
+    l11, l21, l31, l22, l32, l33 = (t[:, None] for t in (l11, l21, l31, l22, l32, l33))
+    r1, r2, r3 = rhs[..., 0], rhs[..., 1], rhs[..., 2]    # (V, D) each
+    y1 = r1 / l11
+    y2 = (r2 - l21 * y1) / l22
+    y3 = (r3 - l31 * y1 - l32 * y2) / l33
+    c3 = y3 / l33
+    c2 = (y2 - l32 * c3) / l22
+    c1 = (y1 - l21 * c2 - l31 * c3) / l11
+    return torch.stack([c1, c2, c3], dim=-1)              # (V, D, 3)
+
+
+def apply_field_gradient(values: torch.Tensor, nbr: torch.Tensor,
+                         coeff: torch.Tensor) -> torch.Tensor:
+    """(V, 3, 3) LSQ gradient of a field given a field_gradient_plan:
+    G_v = sum_d (u_j - u_v) c_vd^T, one gather and one contraction."""
+    values = values.float()
+    u = values[nbr.long()] - values[:, None, :]           # (V, D, 3)
+    return _ring_outer(u, coeff)
+
+
+def mesh_field_gradient(points: torch.Tensor, values: torch.Tensor,
+                        nbr: torch.Tensor) -> torch.Tensor:
+    """(V, 3, 3) least-squares spatial gradient of a discrete vector field
+    over mesh 1-rings: G_v minimizes sum_j |G (x_j - x_v) - (u_j - u_v)|^2
+    over the neighbors in nbr (the self-padded table of
+    geometry.topology.padded_neighbors; padded slots contribute exact
+    zeros).  field_gradient_plan + apply_field_gradient in one call;
+    callers with a stable topology (the node) cache the plan."""
+    return apply_field_gradient(values, nbr, field_gradient_plan(points, nbr))
 
 
 def _matmul33(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

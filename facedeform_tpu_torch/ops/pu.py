@@ -30,6 +30,7 @@ as ops/precise_eval.py does for the global model.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 from typing import NamedTuple, Optional
 
@@ -954,3 +955,130 @@ class PUSeqDeformer:
             disp = torch.stack([project_to_tangents(*fr, disp[f])
                                 for f in range(disp.shape[0])])
         return pts[None] + disp * w[None, :, None], w
+
+
+# --------------------------------------------------------------- node route
+def node_fit_kwargs(cfg, params) -> dict:
+    """The kernel/term/lam mapping every cfg-driven PU route shares.  QNN
+    semantics are EXACT interpolation (the global solver uses lam = 0), so
+    the PU route does too; only the explicit families take the user's
+    ridge (otherwise the default lam = 0.1 would silently smooth the
+    fit)."""
+    from facedeform_tpu_torch.config import RBFModelType
+    from facedeform_tpu_torch.ops import fit as fit_mod
+
+    lam = 0.0 if cfg.model == RBFModelType.QNN else float(params.clamped().lam)
+    return dict(kernel=fit_mod.effective_kernel(cfg), term=cfg.term, lam=lam)
+
+
+@dataclasses.dataclass(frozen=True)
+class PUNodeDeformer:
+    """Deformer-compatible facade for the node path (cfg.solver == "pu").
+
+    Exposes the contract FaceDeformNode drives (report, cfg, params,
+    apply(points, dist2, frame, group_mask, backend), transform_attrs,
+    principal_stretches): the PU displacement field composed with the
+    node's falloff, tangent projection and group gate exactly as
+    deformer.apply_fn composes the global model's.
+    """
+
+    pud: PUDeformer
+    cfg: object
+    params: object
+    # mutable per-instance plan cache (plan key -> eval plan); compare/repr
+    # excluded so the frozen dataclass stays value-like
+    _plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    @property
+    def report(self):
+        return self.pud.report
+
+    @property
+    def device(self) -> torch.device:
+        return self.pud.device
+
+    def _plan_get(self, key):
+        return _lru_hit(self._plans, key)
+
+    def _plan_put(self, key, plan, cap: int = 8) -> None:
+        """Bounded LRU insert.  A cook serves the main mesh and its
+        secondary meshes off one deformer, so a single slot would rebuild
+        every mesh's host plan each cook: keep the last `cap` plans."""
+        _lru_put(self._plans, key, plan, cap)
+
+    @classmethod
+    def fit(cls, rest_ctrl, deformed_ctrl, cfg, params, mesh_devices=None,
+            confidence=None, device="cuda") -> "PUNodeDeformer":
+        from facedeform_tpu_torch.utils import errors
+
+        _no_mesh(mesh_devices, "PUNodeDeformer.fit")
+        pud = PUDeformer.fit(
+            rest_ctrl, deformed_ctrl,
+            **node_fit_kwargs(cfg, params),  # the QNN lam = 0 rule
+            eps="auto",                      # per-patch shape parameter
+            confidence=confidence, device=device,
+        )
+        errors.check_solve(pud.report)
+        return cls(pud=pud, cfg=cfg, params=params)
+
+    def apply(self, points, dist2=None, frame=None, group_mask=None,
+              backend: str = "auto", plan_key=None, mesh_devices=None):
+        """((V, 3) positions, (V,) falloff) on the model's device.  backend
+        "plain"/"cuda" force PUDeformer's path (each with its own plan);
+        any other name ("auto", the global family's "cuda_culled", ...)
+        takes the auto route.  plan_key keys the eval plan (the node passes
+        the mesh's position data id) instead of a digest of the points'
+        bytes."""
+        from facedeform_tpu_torch.ops.falloff import falloff_weight
+        from facedeform_tpu_torch.ops.tangent import project_to_tangents
+
+        _no_mesh(mesh_devices, "PUNodeDeformer.apply")
+        params = self.params.clamped()
+        dev = self.device
+        pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
+        pu_backend = backend if backend in ("plain", "cuda") else "auto"
+        plan = None
+        if plan_key is not None:
+            plan = self._plan_get((plan_key, pu_backend))
+            if plan is None:
+                plan = self.pud.make_plan(_host(points), backend=pu_backend)
+                self._plan_put((plan_key, pu_backend), plan)
+        disp = self.pud.displacement(pts, plan=plan, backend=pu_backend)
+        if self.cfg.tangent and frame is not None:
+            disp = project_to_tangents(
+                *(torch.as_tensor(f, dtype=torch.float32, device=dev) for f in frame), disp)
+        v = pts.shape[0]
+        d2 = (torch.zeros(v, dtype=torch.float32, device=dev) if dist2 is None
+              else torch.as_tensor(dist2, dtype=torch.float32, device=dev))
+        w, active = falloff_weight(d2, params.radius, params.falloffrate,
+                                   strict_parity=self.cfg.strict_parity)
+        if group_mask is not None:
+            active = active & torch.as_tensor(group_mask, dtype=torch.bool, device=dev)
+        w = torch.where(active, w, torch.zeros_like(w))
+        return pts + disp * w[:, None], w
+
+    def deformed_normals(self, points, normals, weight, frame=None):
+        """Transport normals through y = x + w (T) s(x); the contract of
+        Deformer.deformed_normals on the PU field."""
+        from facedeform_tpu_torch.ops.jacobian import transport_normals
+
+        return transport_normals(self.pud.jacobian(points), normals, weight, self.cfg, frame)
+
+    def transform_attrs(self, points, attrs, weight, frame=None, kinds=None,
+                        want_stretch=False, f_map=None):
+        """Attribute transport through the PU Jacobian: the contract of
+        Deformer.transform_attrs (one Jacobian shared by all attrs and the
+        stretches)."""
+        from facedeform_tpu_torch.ops.jacobian import transport_attrs
+
+        return transport_attrs(self.pud.jacobian(points), attrs, weight, self.cfg, frame,
+                               kinds, want_stretch=want_stretch, f_map=f_map)
+
+    def principal_stretches(self, points, weight, frame=None, f_map=None):
+        """Singular values of the applied PU map's deformation gradient."""
+        from facedeform_tpu_torch.ops.jacobian import _applied_gradient, principal_stretches
+
+        f = _applied_gradient(self.pud.jacobian(points), weight, self.cfg, frame)
+        if f_map is not None:
+            f = f_map(f)
+        return principal_stretches(f)

@@ -33,7 +33,7 @@ def test_import_loads_no_jax_and_builds_nothing(tmp_path):
         "assert ce.evaluate_cuda_frames.launches == 0\n"
         "assert (cp.evaluate_cuda_precise.launches, ce.evaluate_cuda_diff.launches) == (0, 0)\n"
         "assert (cj.jacobian_cuda.launches, cj.jacobian_cuda_frames.launches) == (0, 0)\n"
-        "assert cpu_.evaluate_pu_tiles_frames.launches == 0\n"
+        "assert (cpu_.evaluate_pu_tiles.launches, cpu_.evaluate_pu_tiles_frames.launches) == (0, 0)\n"
     )
     build = REPO / "facedeform_tpu_torch" / "csrc" / "build"
     before = sorted(build.glob("*")) if build.exists() else []
