@@ -154,7 +154,27 @@
    PSD cook at an example pose against its sculpt, the card's cook
    against the CPU's at 1602 vertices, and profiles of a warm and a drag
    cook;
-10. times fit, each kernel and its plain version (the dense and culled
+10. runs the rig export and rig tools at phase 9's width: 10a the
+   skinning bake (an 8-pose sweep cooked through the node,
+   fit_skinning with 16 bones and 4 influences, with edges and again
+   with smooth_lambda 0.1, the stage split and peak device memory, a
+   rigid-cluster sweep recovered to 1e-4 of the bbox, lbs_apply against
+   float64); 10b glTF (the skinned bake, the 1M mesh, the 52 shapes as
+   morph targets, the 8 cooked frames: walls, sizes, round trips); 10c
+   checkpoints of every kind (dense, TPS with lo words, dense sequence,
+   PU 30k, PU sequence 20k x 8, PSD, skin, shapes), each reload
+   bit-equal through the same kernel (#1/#2, #5, #3, #7) and a node cook
+   from reloaded deformer and PSD files equal to the in-memory one; 10d
+   inverse rig fits (the closed form at 1000 markers from a 20000-vertex
+   subsample, recovered to 5e-3; the card's gradient route against the
+   CPU's with a nonzero dist2, without and with a tangent frame, the
+   first 5 Adam iterates within 1e-5; the 2-layer gradient path, 150
+   Adam steps through the custom-VJP eval #4, below 0.2 of its start);
+   10e the doctor at 1M with 8 posed rigs; 10f the Houdini adapter on
+   tests/mock_hou.py, cold and warm, its P and fd_falloff bit-equal to
+   a direct cook of the original meshes on a node of its own; launch
+   counters read around it (#1, #2, #3, #4, #5 and #7 must run);
+11. times fit, each kernel and its plain version (the dense and culled
    kernels also alone, by the profiler, and the culled kernel's computed
    against needed pairs), the frames kernel (also alone, by the profiler,
    and its packing kernel against its twin) against 8 dense launches,
@@ -167,9 +187,9 @@
    1M x 30k and 1M x 20k x 8 frames with the pairs it computes against
    the pairs it needs, the PU fits and host plan builds, and profiles of
    the 30k PU fit and the PU kernel (facedeform_tpu_torch.benchmark);
-11. prints a kernels JSON line (per kernel its time, its plain version's,
+12. prints a kernels JSON line (per kernel its time, its plain version's,
    its bound from this run's inputs and which of bytes or operations binds
-   it, the launches of phases 6d, 6e, 8 and 9 by path, library_ms null: no single PyTorch call computes an RBF or PU
+   it, the launches of phases 6d, 6e, 8, 9 and 10 by path, library_ms null: no single PyTorch call computes an RBF or PU
    field; the dense and culled kernels also their time alone, the culled
    kernel the pairs it computed, counted on the card, over the pairs it
    needs; the frames kernel its time alone, the larger of its tensor-core
@@ -186,13 +206,15 @@ kernels and --frames the frames eval kernel (1M x 1k x 8 and F = 1, 2, 16,
 each through entry points a parent commit has too, so that a parent
 checkout (the script copied into it) is timed by the same code; --krylov
 runs phases 6c, 6d and 6e alone, --capture phase 8 alone, --node phase 9
-alone.
+alone, --export phase 10 alone, --skin-bases phase 10a's fit_skinning with
+its per-frame bases kept against recomputed.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import sys
 import time
@@ -4029,8 +4051,512 @@ def main_path_node(dev, label: str, n_side: int = 1000, pu_n: int = NODE_PU_N,
                           ("#7 PU tiles", "evaluate_pu_tiles")):
         _check(dev.type != "cuda" or launches[counter] > 0,
                f"the node cook did not launch kernel {name}")
+    shared = {"sphere": sphere, "markers": markers, "classes": classes, "pose0": pose0,
+              "shapes": [s.points for s in shapes], "examples": examples}
     return {"launches": launches, "walls": walls, "drag_ms": drag_ms, "backend": backend,
-            "timings": timings, "e_small": e_small, "wall_s": wall}
+            "timings": timings, "e_small": e_small, "wall_s": wall, "shared": shared}
+
+
+EXPORT_POSES = 8
+EXPORT_BONES, EXPORT_INFLUENCES = 16, 4
+EXPORT_SMOOTH = 0.1
+RIGID_TOL = 1e-4          # rigid-cluster recovery, rmse over the bbox diagonal
+LBS_TOL = 1e-5            # lbs_apply against float64, of the bbox diagonal
+GLB_ROT_TOL = 1e-5        # a reloaded skin's transforms, of max(1, |t|)
+GLB_W_TOL = 1e-6          # a reloaded skin's top-4 weights (renormalized in f32)
+INVERSE_TOL = 5e-3        # tests/test_inverse.py:72, max |dP| of the refit
+INVERSE_SUBSAMPLE = 20_000
+INVERSE_GRAD_ITERS = 150
+INVERSE_GRAD_GAIN = 0.2   # tests/test_inverse.py:63, error over the start
+GRAD_ROUTE_ITERS = 5      # Adam iterates held card against CPU
+GRAD_ROUTE_TOL = 1e-5     # tests/test_torch_inverse.py's iterate tolerance
+PU_SEQ_N = 20_000
+
+
+def _same(a, b) -> bool:
+    """Bit equality of two tensors (or arrays) of one shape."""
+    a, b = (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+            for x in (a, b))
+    return a.shape == b.shape and bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def main_path_export(dev, label: str, shared: dict = None, n_side: int = 1000,
+                     pu_n: int = NODE_PU_N, pu_seq_n: int = PU_SEQ_N, tps_n: int = NODE_TPS_N,
+                     n_shapes: int = DBSE_SHAPES, grad_iters: int = INVERSE_GRAD_ITERS) -> dict:
+    """Phase 10: the rig export and rig tools at phase 9's width (the 1M
+    sphere, its 1000 markers in 8 classes, 52 bump shapes; `shared` is
+    phase 9's, else they are made by phase 9's recipe).  10a the skinning
+    bake: an 8-pose sweep cooked through the node, fit_skinning (16
+    bones, 4 influences) with edges, again with smooth_lambda, a
+    rigid-cluster sweep and lbs_apply against float64; 10b glTF: the
+    skinned bake, the mesh, the 52 shapes as morph targets and the 8
+    cooked frames, written and read back; 10c a checkpoint of every kind
+    saved and reloaded, the reloads bit-equal through the same kernels
+    and a node cook from reloaded files equal to the in-memory one; 10d
+    inverse rig fits, the closed form at 1000 markers, the card's
+    gradient route against the CPU's and the 2-layer gradient path; 10e
+    the doctor; 10f the Houdini adapter on tests/mock_hou.py, a cold and
+    a warm cook against a direct cook of the original meshes.
+    Launch counters are set to 0 before the phase and read after it (the
+    keywords cut the sizes for a rehearsal on the CPU)."""
+    import tempfile
+
+    import facedeform_tpu_torch.node as node_mod
+    from facedeform_tpu_torch import (DeformConfig, DeformParams, Deformer, FaceDeformNode, Mesh,
+                                      fit_rig, load_mesh, save_mesh)
+    from facedeform_tpu_torch.config import RBFKernel, RBFModelType
+    from facedeform_tpu_torch.doctor import diagnose
+    from facedeform_tpu_torch.geometry import gltf_io
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points, uv_sphere
+    from facedeform_tpu_torch.geometry.topology import unique_edges
+    from facedeform_tpu_torch.ops import cuda_eval, cuda_jacobian, cuda_precise, cuda_pu, skinning
+    from facedeform_tpu_torch.ops.blendshapes import fit_blendshapes
+    from facedeform_tpu_torch.ops.psd import PSDDeformer
+    from facedeform_tpu_torch.ops.pu import PUDeformer, PUSeqDeformer
+    from facedeform_tpu_torch.parallel import batched
+    from facedeform_tpu_torch.utils import checkpoint
+    from facedeform_tpu_torch.utils.profiling import StageTimes
+
+    counters = (cuda_eval.evaluate_cuda, cuda_eval.evaluate_cuda_culled,
+                cuda_eval.control_records, cuda_eval.culled_tables,
+                cuda_eval.evaluate_cuda_frames, cuda_eval.frames_stream,
+                cuda_eval.evaluate_cuda_diff, cuda_precise.evaluate_cuda_precise,
+                cuda_precise.evaluate_cuda_precise_frames, cuda_jacobian.jacobian_cuda,
+                cuda_jacobian.jacobian_cuda_frames, cuda_pu.evaluate_pu_tiles,
+                cuda_pu.evaluate_pu_tiles_frames)
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(10)
+    if shared is None:
+        sphere = uv_sphere(n_side, n_side)
+        markers = fibonacci_points(CAPTURE_MARKERS)
+        classes = _octants(markers)
+        shape_pts = _bump_shapes(sphere.points, n_shapes, seed=8)
+        ex_poses = [markers + (0.04 * rng.standard_normal(markers.shape)).astype(np.float32)
+                    for _ in range(NODE_PSD_EXAMPLES)]
+    else:
+        sphere, markers, classes = shared["sphere"], shared["markers"], shared["classes"]
+        shape_pts = shared["shapes"]
+        ex_poses = [p.points for p, _ in shared["examples"]]
+    pts, faces = sphere.points, sphere.faces
+    v = len(pts)
+    bbox = float(np.linalg.norm(pts.max(0) - pts.min(0)))
+    pts_t = torch.as_tensor(pts, device=dev)
+    poses = [markers + 0.05 * rng.standard_normal(markers.shape).astype(np.float32)
+             for _ in range(EXPORT_POSES)]
+    mesh = Mesh(points=pts, faces=faces)
+    rest_rig = Mesh(points=markers)
+    rest_rig.set_attr("class", classes)
+    cfg, params = DeformConfig(), DeformParams()
+    walls = {}
+
+    def wall(name, fn):
+        out, secs = _timed(fn, dev)
+        walls[name] = secs
+        return out
+
+    def say(msg):
+        print(f"10{msg}  [{label}]", flush=True)
+
+    t_setup = time.perf_counter() - t_phase
+    for fn in counters:
+        fn.launches = 0
+    tmp = tempfile.TemporaryDirectory(prefix="facedeform_export_")
+    d = tmp.name
+    try:
+        # ---- 10a the skinning bake
+        bake_node = FaceDeformNode(device=dev)
+        frames = wall("10a sweep cooks", lambda: np.stack([
+            bake_node.cook([mesh, rest_rig, Mesh(points=p)], cfg, params).mesh.points
+            for p in poses]))
+        edges = wall("10a unique_edges", lambda: unique_edges(faces))
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        times = StageTimes()
+        model, report = wall("10a fit_skinning", lambda: skinning.fit_skinning(
+            pts, frames, n_bones=EXPORT_BONES, max_influences=EXPORT_INFLUENCES, edges=edges,
+            device=dev, times=times))
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+        nnz = int((model.weights > 0).sum(-1).max())
+        say(f"a fit_skinning({EXPORT_BONES} bones, {EXPORT_INFLUENCES} influences) of "
+            f"{EXPORT_POSES} cooked poses at {v} verts: {walls['10a fit_skinning']:.2f} s "
+            f"({times.summary()}); rmse/bbox {report.relative_rmse:.4e}, max_err/bbox "
+            f"{report.max_err / bbox:.4e}, max nonzeros a row {nnz} (cap held: "
+            f"{nnz <= EXPORT_INFLUENCES}), weight_roughness {report.weight_roughness:.4e}, "
+            f"peak device memory {peak:.2f} GiB; sweep cooks {walls['10a sweep cooks']:.2f} s")
+        _check(nnz <= EXPORT_INFLUENCES, "the influence cap did not hold")
+        _check(np.isfinite(report.rmse) and report.relative_rmse < 0.05,
+               f"the bake's rmse/bbox {report.relative_rmse:.3e} is past 5%")
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        times_s = StageTimes()
+        model_s, report_s = wall("10a fit_skinning smoothed", lambda: skinning.fit_skinning(
+            pts, frames, n_bones=EXPORT_BONES, max_influences=EXPORT_INFLUENCES, edges=edges,
+            smooth_lambda=EXPORT_SMOOTH, device=dev, times=times_s))
+        peak_s = torch.cuda.max_memory_allocated() / 2**30 if on_card else float("nan")
+        say(f"a smooth_lambda={EXPORT_SMOOTH} (neighbour table capped at 16): "
+            f"{walls['10a fit_skinning smoothed']:.2f} s ({times_s.summary()}); "
+            f"weight_roughness {report_s.weight_roughness:.4e} against {report.weight_roughness:.4e} "
+            f"unsmoothed, rmse/bbox {report_s.relative_rmse:.4e}, peak {peak_s:.2f} GiB")
+        _check(report_s.weight_roughness < report.weight_roughness,
+               "smooth_lambda did not lower the weight roughness")
+        # two halves under known rigid motions: exact recovery
+        left = pts[:, 0] < 0
+        rig_frames = []
+        for k, ang in enumerate((0.2, 0.5, -0.3)):
+            c, s_ = np.cos(ang), np.sin(ang)
+            rz = np.array([[c, -s_, 0], [s_, c, 0], [0, 0, 1]], np.float32)
+            rx = np.array([[1, 0, 0], [0, c, -s_], [0, s_, c]], np.float32)
+            moved = pts @ rx.T + np.float32([0.0, -0.1, 0.05]) * (k + 1)
+            moved[left] = pts[left] @ rz.T + np.float32([0.1, 0.3, 0.0]) * ang
+            rig_frames.append(moved.astype(np.float32))
+        rig_model, rig_report = wall("10a rigid clusters", lambda: skinning.fit_skinning(
+            pts, np.stack(rig_frames), n_bones=2, max_influences=2, seed=3, device=dev))
+        say(f"a rigid-cluster sweep (two halves, 3 poses): rmse/bbox {rig_report.relative_rmse:.3e} "
+            f"(tol {RIGID_TOL:g}), {walls['10a rigid clusters']:.2f} s")
+        _check(rig_report.relative_rmse <= RIGID_TOL, "the rigid clusters were not recovered")
+        # lbs_apply against a float64 reconstruction on a vertex sample
+        idx = np.linspace(0, v - 1, 4096).astype(np.int64)
+        w64 = model.weights[idx].double()
+        e_lbs = 0.0
+        for f in range(EXPORT_POSES):
+            got = skinning.lbs_apply(model.weights, model.rest, model.rotations[f],
+                                     model.translations[f])[idx]
+            y = (torch.einsum("bij,vj->vbi", model.rotations[f].double(), model.rest[idx].double())
+                 + model.translations[f].double()[None])
+            e_lbs = max(e_lbs, float((got.double() - (w64[:, :, None] * y).sum(1)).abs().max()))
+        say(f"a lbs_apply vs float64 on {len(idx)} verts x {EXPORT_POSES} poses: "
+            f"{e_lbs / bbox:.3e} of bbox (tol {LBS_TOL:g})")
+        _check(e_lbs <= LBS_TOL * bbox, "lbs_apply disagrees with float64")
+
+        # ---- 10b glTF
+        def size(name):
+            return os.path.getsize(os.path.join(d, name)) / 2**20
+
+        p_skin = os.path.join(d, "skin.glb")
+        wall("10b save_glb_skinned", lambda: gltf_io.save_glb_skinned(p_skin, mesh, model))
+        skin2, skin_t = wall("10b load_glb_skin",
+                             lambda: gltf_io.load_glb_skin(p_skin, device=dev))
+        t_scale = max(1.0, float(model.translations.abs().max()))
+        e_w = float((skin2.weights - model.weights).abs().max())
+        e_r = float((skin2.rotations - model.rotations).abs().max())
+        e_t = float((skin2.translations - model.translations).abs().max())
+        say(f"b skinned .glb {size('skin.glb'):.1f} MiB: write {walls['10b save_glb_skinned']:.2f} s, "
+            f"read {walls['10b load_glb_skin']:.2f} s; weights {e_w:.2e} (tol {GLB_W_TOL:g}), "
+            f"rotations {e_r:.2e}, translations {e_t:.2e} (tol {GLB_ROT_TOL:g} x {t_scale:.2f}), "
+            f"rest bit-equal {_same(skin2.rest, model.rest)}, {len(skin_t)} keyframes")
+        _check(e_w <= GLB_W_TOL and e_r <= GLB_ROT_TOL and e_t <= GLB_ROT_TOL * t_scale
+               and _same(skin2.rest, model.rest) and len(skin_t) == EXPORT_POSES,
+               "the skinned .glb did not round-trip")
+        p_mesh = os.path.join(d, "mesh.glb")
+        wall("10b save_mesh .glb", lambda: save_mesh(p_mesh, mesh))
+        back = wall("10b load_mesh .glb", lambda: load_mesh(p_mesh))
+        ok_mesh = _same(back.points, pts) and _same(back.faces, mesh.triangles())
+        say(f"b mesh .glb {size('mesh.glb'):.1f} MiB: write {walls['10b save_mesh .glb']:.2f} s, "
+            f"read {walls['10b load_mesh .glb']:.2f} s; points and triangles equal {ok_mesh}")
+        _check(ok_mesh, "the mesh .glb did not round-trip")
+        targets = np.stack([s - pts for s in shape_pts]).astype(np.float32)
+        t_weights = rng.random((EXPORT_POSES, len(targets))).astype(np.float32)
+        p_tgt = os.path.join(d, "targets.glb")
+        wall("10b save_glb_targets", lambda: gltf_io.save_glb_targets(p_tgt, mesh, targets,
+                                                                      t_weights))
+        _, shapes_back, _, anim = wall("10b load_glb_blendshapes",
+                                       lambda: gltf_io.load_glb_blendshapes(p_tgt))
+        ok_tgt = (len(shapes_back) == len(targets) and _same(anim, t_weights)
+                  and all(_same(s.points, pts + t) for s, t in zip(shapes_back, targets)))
+        say(f"b {len(targets)} morph targets .glb {size('targets.glb'):.1f} MiB: write "
+            f"{walls['10b save_glb_targets']:.2f} s, read {walls['10b load_glb_blendshapes']:.2f} s; "
+            f"shapes and weight curves equal {ok_tgt}")
+        _check(ok_tgt, "the morph-target .glb did not round-trip")
+        p_morph = os.path.join(d, "morph.glb")
+        wall("10b save_glb_morph", lambda: gltf_io.save_glb_morph(p_morph, mesh, frames))
+        say(f"b {EXPORT_POSES}-frame morph .glb {size('morph.glb'):.1f} MiB: write "
+            f"{walls['10b save_glb_morph']:.2f} s")
+
+        # ---- 10c checkpoints: a reload evaluates bit for bit as the original
+        def roundtrip(name, save, load):
+            path = os.path.join(d, name + ".npz")
+            wall(f"10c save {name}", lambda: save(path))
+            out = wall(f"10c load {name}", lambda: load(path))
+            return out, checkpoint.kind(path)
+
+        dense = Deformer.fit(markers, poses[0], cfg, params, device=dev)
+        dense2, k_dense = roundtrip("dense", lambda p: checkpoint.save(p, dense),
+                                    lambda p: checkpoint.load(p, device=dev))
+        same_dense = all(_same(dense.apply(pts_t, backend=b)[0], dense2.apply(pts_t, backend=b)[0])
+                         for b in ("cuda", "cuda_culled"))
+        tps_rest = fibonacci_points(tps_n)
+        tps_pose = (tps_rest + 0.05 * np.sin(3.0 * tps_rest[:, [1, 2, 0]])).astype(np.float32)
+        cfg_tps = DeformConfig(model=RBFModelType.KERNEL, kernel=RBFKernel.THIN_PLATE)
+        tps = Deformer.fit(tps_rest, tps_pose, cfg_tps, DeformParams(radius=1.0, lam=0.01),
+                           device=dev)
+        tps2, k_tps = roundtrip("tps", lambda p: checkpoint.save(p, tps),
+                                lambda p: checkpoint.load(p, device=dev))
+        same_tps = (tps2.model.w_rbf_lo is not None
+                    and _same(tps.apply(pts_t)[0], tps2.apply(pts_t)[0]))
+        seq_model, resid = batched.fit_frames(markers, np.stack(poses), cfg, params, device=dev)
+        (seq2, cfg2, params2, resid2), k_seq = roundtrip(
+            "seq", lambda p: checkpoint.save_seq(p, seq_model, cfg, params, resid),
+            lambda p: checkpoint.load_seq(p, device=dev))
+        zeros, ones = torch.zeros(v, device=dev), torch.ones(v, device=dev)
+        same_seq = _same(batched.apply_frames(seq_model, pts_t, zeros, ones, cfg, params)[0],
+                         batched.apply_frames(seq2, pts_t, zeros, ones, cfg2, params2)[0])
+        pu_rest, pu_frames = _bump_rig(pu_n)
+        pud = wall("10c PUDeformer.fit", lambda: PUDeformer.fit(pu_rest, pu_frames[0], device=dev))
+        pud2, k_pu = roundtrip("pu", lambda p: checkpoint.save_pu(p, pud),
+                               lambda p: checkpoint.load_pu(p, device=dev))
+        plan = wall("10c PU plan", lambda: pud.make_plan(pts))
+        same_pu = _same(pud.displacement(pts_t, plan=plan), pud2.displacement(pts_t, plan=plan))
+        seq_rest, seq_frames = _bump_rig(pu_seq_n, PU_SHOT_CENTERS[:EXPORT_POSES])
+        pus = wall("10c PUSeqDeformer.fit",
+                   lambda: PUSeqDeformer.fit(seq_rest, seq_frames, device=dev))
+        pus2, k_pus = roundtrip("pu_seq", lambda p: checkpoint.save_pu_seq(p, pus),
+                                lambda p: checkpoint.load_pu_seq(p, device=dev))
+        same_pus = _same(pus.displacement_frames(pts_t), pus2.displacement_frames(pts_t))
+        normals = pts / np.linalg.norm(pts, axis=1, keepdims=True)
+        corr = np.stack([0.03 * (k + 1) * np.exp(-np.sum((pts - fibonacci_points(16)[3 * k + 1]) ** 2,
+                                                         -1) / 0.1)[:, None] * normals
+                         for k in range(len(ex_poses))]).astype(np.float32)
+        psd = PSDDeformer.fit(markers, np.stack(ex_poses), corr, device=dev)
+        psd2, k_psd = roundtrip("psd", lambda p: checkpoint.save_psd(p, psd),
+                                lambda p: checkpoint.load_psd(p, device=dev))
+        (skin3, rep3), k_skin = roundtrip(
+            "skin", lambda p: checkpoint.save_skinning(p, model, report),
+            lambda p: checkpoint.load_skinning(p, device=dev))
+        same_skin = rep3 == report and all(_same(a, b) for a, b in zip(skin3, model))
+        bake, bake_rep = fit_blendshapes(pts, frames, rank=EXPORT_POSES, device=dev)
+        (bake2, bake_rep2), k_shapes = roundtrip(
+            "shapes", lambda p: checkpoint.save_blendshapes(p, bake, bake_rep),
+            lambda p: checkpoint.load_blendshapes(p, device=dev))
+        same_shapes = (all(_same(a, b) for a, b in zip(bake, bake2))
+                       and bake_rep2.rmse == bake_rep.rmse)
+        # the node's cook from the reloaded deformer and PSD files against
+        # the in-memory ones (the autotune held to the culled kernel, so
+        # the two cooks run one kernel)
+        ck_node = FaceDeformNode(device=dev)
+        ck_in = [mesh, rest_rig, Mesh(points=ex_poses[0])]
+        saved_backends = node_mod.AUTOTUNE_BACKENDS
+        node_mod.AUTOTUNE_BACKENDS = ("cuda_culled",)
+        try:
+            res_mem = ck_node.cook(ck_in, cfg, params, deformer=dense, psd=psd)
+            res_ck = ck_node.cook(ck_in, cfg, params, deformer=dense2, psd=psd2)
+        finally:
+            node_mod.AUTOTUNE_BACKENDS = saved_backends
+        same_cook = (_same(res_mem.mesh.points, res_ck.mesh.points)
+                     and _same(res_mem.mesh.attr("fd_falloff"), res_ck.mesh.attr("fd_falloff")))
+        kinds = {"dense": k_dense, "tps": k_tps, "seq": k_seq, "pu": k_pu, "pu_seq": k_pus,
+                 "psd": k_psd, "skin": k_skin, "shapes": k_shapes}
+        checks = {"dense #1/#2": same_dense, "tps lo words #5": same_tps, "seq #3": same_seq,
+                  "pu #7": same_pu, "pu_seq #7": same_pus, "skin": same_skin,
+                  "shapes": same_shapes, "node cook deformer= psd=": same_cook}
+        say(f"c checkpoints (walls s): " + ", ".join(
+            f"{k[4:]} {w:.2f}" for k, w in walls.items() if k.startswith("10c ")))
+        say(f"c reloads bit-equal: {checks}; kind(): {kinds}; PU plan {walls['10c PU plan']:.2f} s")
+        _check(all(checks.values()), f"a reloaded checkpoint differs: {checks}")
+        _check(kinds == {"dense": "dense", "tps": "dense", "seq": "seq", "pu": "pu",
+                         "pu_seq": "pu_seq", "psd": "psd", "skin": "skin", "shapes": "shapes"},
+               f"kind() misnamed a file: {kinds}")
+
+        # ---- 10d inverse rig fits
+        target = dense.apply(pts_t)[0]
+        inv = wall("10d fit_rig closed form", lambda: fit_rig(
+            markers, pts_t, target, ridge=1e-8, subsample=INVERSE_SUBSAMPLE, device=dev))
+        refit = Deformer.fit(markers, inv.deformed_ctrl, cfg, params, device=dev).apply(pts_t)[0]
+        e_inv = float((refit - target).abs().max())
+        say(f"d closed form at {CAPTURE_MARKERS} markers, subsample {INVERSE_SUBSAMPLE} of {v}: "
+            f"{walls['10d fit_rig closed form']:.3f} s, residual rms {float(inv.residual_rms):.3e}; "
+            f"refit max |dP| {e_inv:.3e} (tol {INVERSE_TOL:g})")
+        _check(e_inv <= INVERSE_TOL, "the closed-form inverse did not recover the rig")
+        g_rest = fibonacci_points(25)
+        g_true = g_rest + 0.08 * np.random.default_rng(42).standard_normal((25, 3)).astype(
+            np.float32)
+        cfg_ml = DeformConfig(model=RBFModelType.MULTILAYER, layers=2)
+        params_ml = DeformParams(radius=1.5, lam=0.05)
+        g_target = Deformer.fit(g_rest, g_true, cfg_ml, params_ml, device=dev).apply(pts_t)[0]
+        # the card's route (falloff x gate and the tangent projection inside
+        # #4a's forward) against the CPU route's evaluate x falloff on the
+        # same subsample: a nonzero dist2, without and with a tangent
+        # frame, the first Adam iterates held to each other
+        g_dist2 = (0.3 * np.abs(np.random.default_rng(43).standard_normal(v))).astype(np.float32)
+        g_frame = tuple(f.cpu().numpy() for f in _sphere_frame(pts_t))
+        g_target_np = g_target.cpu().numpy()
+        route_cases = {
+            "falloff": (cfg_ml, None),
+            "falloff+tangent": (DeformConfig(model=RBFModelType.MULTILAYER, layers=2,
+                                             tangent=True), g_frame)}
+        route_errs, cold = {}, "10d gradient path first step (cold)"
+        for case, (cfg_r, frame_r) in route_cases.items():
+            route_errs[case] = 0.0
+            for k in range(1, GRAD_ROUTE_ITERS + 1):
+                kw = dict(dist2=g_dist2, frame=frame_r, max_iters=k, learning_rate=0.05,
+                          ridge=1e-6, subsample=INVERSE_SUBSAMPLE)
+                name = cold if cold not in walls else "10d route check, card"
+                on_dev = wall(name, lambda: fit_rig(g_rest, pts_t, g_target, cfg_r, params_ml,
+                                                    device=dev, **kw))
+                on_cpu = fit_rig(g_rest, pts, g_target_np, cfg_r, params_ml, device="cpu", **kw)
+                route_errs[case] = max(route_errs[case], float(
+                    (on_dev.deformed_ctrl.cpu() - on_cpu.deformed_ctrl).abs().max()))
+        say(f"d gradient route, card against CPU (2-layer, 25 markers, subsample "
+            f"{INVERSE_SUBSAMPLE}, dist2 = 0.3|N(0,1)|, Adam iterates 1-{GRAD_ROUTE_ITERS}): "
+            f"max |d ctrl| {route_errs} (tol {GRAD_ROUTE_TOL:g}); the first card step, cold, "
+            f"{walls[cold]:.2f} s")
+        _check(all(e <= GRAD_ROUTE_TOL for e in route_errs.values()),
+               f"the card's gradient route differs from the CPU route: {route_errs}")
+        diff_before = cuda_eval.evaluate_cuda_diff.launches
+        ginv = wall("10d fit_rig gradient path", lambda: fit_rig(
+            g_rest, pts_t, g_target, cfg_ml, params_ml, max_iters=grad_iters,
+            learning_rate=0.05, ridge=1e-6, subsample=INVERSE_SUBSAMPLE, device=dev))
+        diff_launches = cuda_eval.evaluate_cuda_diff.launches - diff_before
+        g_refit = Deformer.fit(g_rest, ginv.deformed_ctrl, cfg_ml, params_ml,
+                               device=dev).apply(pts_t)[0]
+        base = float((g_target - pts_t).abs().max())
+        e_g = float((g_refit - g_target).abs().max())
+        say(f"d gradient path (2-layer, 25 markers, {grad_iters} Adam steps): "
+            f"{walls['10d fit_rig gradient path']:.2f} s, evaluate_cuda_diff launches "
+            f"{diff_launches}; refit max |dP| {e_g:.3e} against the start {base:.3e} "
+            f"({e_g / base:.3f}, tol {INVERSE_GRAD_GAIN:g})")
+        _check(e_g < INVERSE_GRAD_GAIN * base, "the gradient path did not converge")
+        _check(not on_card or diff_launches >= grad_iters,
+               "the gradient path did not run the custom-VJP eval")
+
+        # ---- 10e the doctor
+        rep = wall("10e diagnose", lambda: diagnose(
+            mesh, rest_rig, [Mesh(points=p) for p in poses], probe_solve=True, device=dev))
+        say(f"e diagnose at {v} verts, 8 posed rigs: {walls['10e diagnose']:.2f} s; "
+            f"{rep.summary()}: " + "; ".join(f"{f.severity} {f.code}" for f in rep.findings))
+        _check(not rep.errors and "solve-ok" in {f.code for f in rep.findings},
+               f"the doctor found errors: {rep.findings}")
+
+        # ---- 10f the Houdini adapter on tests/mock_hou.py (loaded by path:
+        # another installed package may own the name `tests`)
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "mock_hou", os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                                     "mock_hou.py"))
+        mock_hou = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mock_hou)
+        saved_hou = sys.modules.get("hou")
+        sys.modules["hou"] = mock_hou
+        try:
+            from facedeform_tpu_torch import houdini
+
+            geos = wall("10f hou geometry", lambda: [mock_hou.geometry_from_mesh(m) for m in (
+                mesh, rest_rig, Mesh(points=poses[0]))])
+            inputs = tuple(mock_hou.SopNode(f"/obj/face/in{i}", g) for i, g in enumerate(geos))
+            sop = mock_hou.SopNode("/obj/face/facedeform", parms={
+                "dofalloff": 1, "radius": CAPTURE_RADIUS, "maxedges": CAPTURE_MAXEDGES},
+                inputs=inputs)
+            houdini.clear_state()
+            wall("10f cook_sop cold", lambda: houdini.cook_sop(sop, device=dev))
+            wall("10f cook_sop warm", lambda: houdini.cook_sop(sop, device=dev))
+            state = houdini._NODE_STATE[sop.path()]
+            h_cfg, h_params, h_group = houdini.config_from_node(sop)
+            # a node of its own cooks the original meshes, not the adapter's
+            # conversions of them, held to the backend the adapter's node
+            # chose (the autotune may pick either on a close call)
+            direct_node = FaceDeformNode(device=dev)
+            direct_in = [mesh, rest_rig, Mesh(points=poses[0])]
+            saved_backends = node_mod.AUTOTUNE_BACKENDS
+            if state["node"].last_backend in saved_backends:
+                node_mod.AUTOTUNE_BACKENDS = (state["node"].last_backend,)
+            try:
+                _, direct_cold_s, _ = _cook_timed(direct_node, direct_in, h_cfg, h_params, dev,
+                                                  group=h_group or None)
+                direct, direct_s, direct_times = _cook_timed(direct_node, direct_in, h_cfg,
+                                                             h_params, dev, group=h_group or None)
+            finally:
+                node_mod.AUTOTUNE_BACKENDS = saved_backends
+            walls["10f direct cold cook"], walls["10f direct warm cook"] = direct_cold_s, direct_s
+            out_geo = sop.geometry()
+            got = np.asarray(out_geo.pointFloatAttribValues("P"), np.float32).reshape(-1, 3)
+            got_fall = np.asarray(out_geo.pointFloatAttribValues("fd_falloff"), np.float32)
+            same_h = (_same(got, direct.mesh.points)
+                      and _same(got_fall, direct.mesh.attr("fd_falloff")))
+            # the adapter's own host steps in a warm cook: the input cache
+            # keys' point counts (len(geo.points()), three inputs) and the
+            # write-back of P, fd_falloff and rest as float lists
+            wall("10f point counts", lambda: [len(g.points()) for g in geos])
+            wall("10f write-back", lambda: houdini.write_mesh_to_geometry(
+                sop.geometry(), direct.mesh, extra_attrs=direct.transported))
+            say(f"f cook_sop at {v} verts: mock geometry build {walls['10f hou geometry']:.2f} s, "
+                f"cold {walls['10f cook_sop cold']:.2f} s, warm "
+                f"{1e3 * walls['10f cook_sop warm']:.2f} ms against a direct FaceDeformNode.cook "
+                f"of the original meshes, cold {direct_cold_s:.2f} s, warm "
+                f"{1e3 * direct_s:.2f} ms ({direct_times.summary()}); output P and fd_falloff "
+                f"bit-equal {same_h}; backend {state['node'].last_backend!r}; in the "
+                f"warm cook: the inputs' len(geo.points()) {walls['10f point counts']:.2f} s, "
+                f"the write-back {walls['10f write-back']:.2f} s")
+            _check(same_h, "the adapter's output differs from the direct cook's")
+        finally:
+            houdini.clear_state()
+            if saved_hou is None:
+                sys.modules.pop("hou", None)
+            else:
+                sys.modules["hou"] = saved_hou
+    finally:
+        tmp.cleanup()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    wall_s = time.perf_counter() - t_phase
+    print(f"export: launches {launches}  [{label}]", flush=True)
+    print(f"export: {wall_s:.1f} s wall (set-up {t_setup:.1f} s)  [{label}]", flush=True)
+    for name, counter in (("#1 dense", "evaluate_cuda"), ("#2 culled", "evaluate_cuda_culled"),
+                          ("#3 frames", "evaluate_cuda_frames"),
+                          ("#4 custom-VJP", "evaluate_cuda_diff"),
+                          ("#5 precise", "evaluate_cuda_precise"),
+                          ("#7 PU tiles", "evaluate_pu_tiles"),
+                          ("#7 PU tiles frames", "evaluate_pu_tiles_frames")):
+        _check(not on_card or launches[counter] > 0,
+               f"the export path did not launch kernel {name}")
+    return {"launches": launches, "walls": walls, "wall_s": wall_s}
+
+
+def time_skin_bases(dev, label: str, n_side: int = 1000) -> dict:
+    """fit_skinning at phase 10a's shape (the 1M sphere, 8 poses cooked
+    through the node, 16 bones, 4 influences) with one PGD call's
+    per-frame bases kept on the device (BASIS_CACHE_BYTES at its default)
+    and recomputed on every pass (0), in alternating runs: keep,
+    recompute, recompute, keep.  The two must give bit-equal weights."""
+    from facedeform_tpu_torch import FaceDeformNode, Mesh
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points, uv_sphere
+    from facedeform_tpu_torch.ops import skinning
+    from facedeform_tpu_torch.utils.profiling import StageTimes
+
+    sphere = uv_sphere(n_side, n_side)
+    markers = fibonacci_points(CAPTURE_MARKERS)
+    mesh = Mesh(points=sphere.points, faces=sphere.faces)
+    rest_rig = Mesh(points=markers)
+    rest_rig.set_attr("class", _octants(markers))
+    rng = np.random.default_rng(10)
+    node = FaceDeformNode(device=dev)
+    frames = np.stack([node.cook([mesh, rest_rig, Mesh(points=markers + 0.05 * rng.standard_normal(
+        markers.shape).astype(np.float32))]).mesh.points for _ in range(EXPORT_POSES)])
+    default = skinning.BASIS_CACHE_BYTES
+    alt, walls, weights = {"keep": [], "recompute": []}, {"keep": [], "recompute": []}, {}
+    try:
+        for mode in ("keep", "recompute", "recompute", "keep"):
+            skinning.BASIS_CACHE_BYTES = default if mode == "keep" else 0
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            times = StageTimes()
+            (model, _), secs = _timed(lambda: skinning.fit_skinning(
+                sphere.points, frames, n_bones=EXPORT_BONES, max_influences=EXPORT_INFLUENCES,
+                device=dev, times=times), dev)
+            peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
+            alt[mode].append(times.ms["alternation"] / 1e3)
+            walls[mode].append(secs)
+            weights.setdefault(mode, model.weights)
+            print(f"skin-bases {mode}: alternation {alt[mode][-1]:.4f} s, fit_skinning "
+                  f"{secs:.4f} s, peak device memory {peak:.2f} GiB  [{label}]", flush=True)
+    finally:
+        skinning.BASIS_CACHE_BYTES = default
+    same = _same(weights["keep"], weights["recompute"])
+    print(f"skin-bases at {len(sphere.points)} verts x {EXPORT_BONES} bones x {EXPORT_POSES} "
+          f"poses: alternation keep {alt['keep']} s, recompute {alt['recompute']} s "
+          f"(recompute / keep {min(alt['recompute']) / min(alt['keep']):.4f} best to best); "
+          f"weights bit-equal {same}  [{label}]", flush=True)
+    _check(same, "kept and recomputed bases gave different weights")
+    return {"alternation": alt, "walls": walls}
 
 
 def _ptxas_summary(log: str) -> list:
@@ -4101,6 +4627,14 @@ def main() -> int:
         # the node's cook (phase 9) alone
         main_path_node(dev, label)
         return 0
+    if "--export" in sys.argv[1:]:
+        # the rig export and rig tools (phase 10) alone
+        main_path_export(dev, label)
+        return 0
+    if "--skin-bases" in sys.argv[1:]:
+        # fit_skinning with its bases kept against recomputed, alone
+        time_skin_bases(dev, label)
+        return 0
 
     check_kernels(dev)
     check_pack_kernels(dev)
@@ -4123,18 +4657,22 @@ def main() -> int:
     chain = main_path_capture(dev, label)
     torch.cuda.empty_cache()
     node = main_path_node(dev, label)
+    torch.cuda.empty_cache()
+    export = main_path_export(dev, label, shared=node["shared"])
     kernels = (time_kernels(main, label) + time_frames(main_b, label)
                + time_precise(main_c, label) + time_pu(main_f, shot_f, label))
     # the kernels the large-rig, drag and capture-chain paths launched, by
     # path (each path's counters set to 0 just before it and read just after)
     paths = {"large rigs": large["launches"],
              **{f"drag {k}": v["launches"] for k, v in drag.items() if "launches" in v},
-             "capture chain": chain["launches"], "node cook": node["launches"]}
+             "capture chain": chain["launches"], "node cook": node["launches"],
+             "export": export["launches"]}
     counter_of = {"eval_dense": "evaluate_cuda", "eval_culled": "evaluate_cuda_culled",
                   "eval_records": "control_records", "culled_tables": "culled_tables",
                   "eval_frames": "evaluate_cuda_frames", "frames_stream": "frames_stream",
                   "eval_precise": "evaluate_cuda_precise",
                   "eval_precise_frames": "evaluate_cuda_precise_frames",
+                  "eval_diff": "evaluate_cuda_diff",
                   "jacobian": "jacobian_cuda_frames", "jacobian_single": "jacobian_cuda",
                   "pu_tiles": "evaluate_pu_tiles",
                   "pu_tiles_frames": "evaluate_pu_tiles_frames"}

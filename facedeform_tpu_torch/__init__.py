@@ -32,6 +32,12 @@ Same math and public names as the JAX package (which stays the reference):
                                  transport -> secondary meshes, with
                                  symmetry (ops.symmetry) and stage timing
                                  (utils.profiling)
+  fit_rig / InverseRigResult   — inverse rig fitting: the rig pose that
+                                 reproduces a target mesh (inverse.py)
+  ops.skinning, geometry.gltf_io, utils.checkpoint, doctor, houdini
+                               — the LBS skinning bake, glTF I/O, .npz
+                                 checkpoints of every model kind, input
+                                 linting and the Houdini Python SOP
 The GPU kernels (dense, culled and frames eval, Jacobian, and the float64
 precise eval of the growing kernels) are CUDA C++ in csrc/, compiled for
 sm_90a at first use (ops/cuda_eval.py); importing the package builds
@@ -48,6 +54,7 @@ from facedeform_tpu_torch.config import (
 )
 from facedeform_tpu_torch.deformer import Deformer, FitPlan
 from facedeform_tpu_torch.geometry import Mesh, load_mesh, save_mesh
+from facedeform_tpu_torch.inverse import InverseRigResult, fit_rig
 from facedeform_tpu_torch.node import CookResult, FaceDeformNode
 from facedeform_tpu_torch.models import (
     KernelZooDeformModel,
@@ -72,6 +79,7 @@ __all__ = [
     "Deformer",
     "FaceDeformNode",
     "FitPlan",
+    "InverseRigResult",
     "KernelZooDeformModel",
     "Mesh",
     "MultilayerDeformModel",
@@ -84,6 +92,7 @@ __all__ = [
     "RBFModelType",
     "SolveReport",
     "fit_blendshapes",
+    "fit_rig",
     "load_mesh",
     "save_mesh",
 ]

@@ -18,11 +18,13 @@ A partition-of-unity model and its patches carry over the same way:
                                  for f in jax_model._fields}, device)
     patches = pu_patches_from_numpy(jax_patches._asdict())
 
-Host geometry, a DBSE basis, a blendshape bake, a capture result and a
-pose-space (PSD) model carry over the same way (mesh_from_fields,
-dbse_model_from_numpy, blendshape_model_from_numpy,
-capture_result_from_numpy, psd_model_from_numpy), so both packages compute
-from the same state (a PSDDeformer wraps the model for cook(psd=...)):
+Host geometry, a DBSE basis, a blendshape bake, a capture result, a
+pose-space (PSD) model and a skinning decomposition carry over the same way
+(mesh_from_fields, dbse_model_from_numpy, blendshape_model_from_numpy,
+capture_result_from_numpy, psd_model_from_numpy,
+skinning_model_from_numpy), so both packages compute from the same state
+(a PSDDeformer wraps the model for cook(psd=...)); utils/checkpoint.py
+loads every model kind through these converters:
 
     mesh = mesh_from_fields(dataclasses.asdict(jax_mesh))
     dbse = dbse_model_from_numpy({f: np.asarray(getattr(jax_dbse, f))
@@ -46,6 +48,7 @@ from facedeform_tpu_torch.ops.dbse import DBSEModel
 from facedeform_tpu_torch.ops.fit import RBFModel
 from facedeform_tpu_torch.ops.psd import PSDModel
 from facedeform_tpu_torch.ops.pu import PUModel, PUPatches
+from facedeform_tpu_torch.ops.skinning import SkinningModel
 
 
 def model_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> RBFModel:
@@ -145,4 +148,14 @@ def psd_model_from_numpy(arrays: Mapping[str, np.ndarray], device="cuda") -> PSD
     return PSDModel(**{
         f: torch.tensor(np.asarray(arrays[f], np.float32), device=device)
         for f in PSDModel._fields
+    })
+
+
+def skinning_model_from_numpy(arrays: Mapping[str, np.ndarray],
+                              device="cuda") -> SkinningModel:
+    """SkinningModel from {field: array} (the JAX SkinningModel's: weights,
+    rotations, translations, rest), float32 on `device`."""
+    return SkinningModel(**{
+        f: torch.tensor(np.asarray(arrays[f], np.float32), device=device)
+        for f in SkinningModel._fields
     })

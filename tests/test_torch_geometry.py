@@ -199,17 +199,20 @@ def test_files_load_bit_equal_across_packages(ext, writer, tmp_path):
 
 def test_obj_tabs_relative_indices_and_glb(tmp_path):
     """The OBJ reader's tab and relative-index handling equals the JAX
-    package's; .glb raises NotImplementedError naming the roadmap."""
+    package's; load_mesh/save_mesh dispatch .glb to the glTF module, whose
+    file equals the JAX package's byte for byte."""
     path = tmp_path / "t.obj"
     path.write_text("v\t0 0 0\nv 1 0 0\nv\t1 1 0\nv 0 1 0\ng top\nf\t-4 -3 -2\nf 1 3 4\n")
     jl, tl = jgeom.load_mesh(str(path)), tgeom.load_mesh(str(path))
     np.testing.assert_array_equal(tl.points, jl.points)
     np.testing.assert_array_equal(tl.faces, jl.faces)
     np.testing.assert_array_equal(tl.group_mask("top"), jl.group_mask("top"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgeom.load_mesh(str(tmp_path / "m.glb"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgeom.save_mesh(str(tmp_path / "m.glb"), tl)
+    tgeom.save_mesh(str(tmp_path / "t.glb"), tl)
+    jgeom.save_mesh(str(tmp_path / "j.glb"), jl)
+    assert (tmp_path / "t.glb").read_bytes() == (tmp_path / "j.glb").read_bytes()
+    back = tgeom.load_mesh(str(tmp_path / "j.glb"))
+    np.testing.assert_array_equal(back.points, jl.points)
+    np.testing.assert_array_equal(back.triangles(), jl.triangles())
 
 
 def test_mesh_from_fields_carries_everything():

@@ -25,8 +25,13 @@ def test_import_loads_no_jax_and_builds_nothing(tmp_path):
         "import facedeform_tpu_torch.ops.dbse, facedeform_tpu_torch.ops.blendshapes\n"
         "import facedeform_tpu_torch.ops.decimate, facedeform_tpu_torch.ops.loocv\n"
         "import facedeform_tpu_torch.ops.distances, facedeform_tpu_torch.geometry.geo_io\n"
+        "import facedeform_tpu_torch.ops.skinning, facedeform_tpu_torch.geometry.gltf_io\n"
+        "import facedeform_tpu_torch.utils.checkpoint, facedeform_tpu_torch.inverse\n"
+        "import facedeform_tpu_torch.doctor, facedeform_tpu_torch.houdini\n"
+        "from facedeform_tpu_torch import fit_rig, InverseRigResult\n"
         "assert nat._lib is None and not nat._tried\n"
-        "jax = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'facedeform_tpu')]\n"
+        "jax = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'optax', 'orbax', 'facedeform_tpu')]\n"
         "assert not jax, jax\n"
         "assert ce._lib is None\n"
         "assert (ce.evaluate_cuda.launches, ce.evaluate_cuda_culled.launches) == (0, 0)\n"
@@ -48,7 +53,8 @@ def test_import_loads_no_jax_and_builds_nothing(tmp_path):
 def test_every_port_module_and_chip_smoke_load_no_jax(tmp_path):
     """Every module under facedeform_tpu_torch/ (found by walking the
     package, so a new module is covered) and chip_smoke.py import without
-    JAX or the JAX package; the precise kernel's counters start at 0."""
+    JAX, optax, orbax or the JAX package; the precise kernel's counters
+    start at 0."""
     code = (
         "import importlib.util, pkgutil, sys, facedeform_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
@@ -56,9 +62,13 @@ def test_every_port_module_and_chip_smoke_load_no_jax(tmp_path):
         "spec = importlib.util.spec_from_file_location(\n"
         f"    'chip_smoke', {str(REPO / 'chip_smoke.py')!r})\n"
         "smoke = importlib.util.module_from_spec(spec); spec.loader.exec_module(smoke)\n"
-        "jax = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'facedeform_tpu')]\n"
+        "jax = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'optax', 'orbax', 'facedeform_tpu')]\n"
         "assert not jax, jax\n"
         "assert len(names) > 20, names\n"
+        "new = {'ops.skinning', 'geometry.gltf_io', 'utils.checkpoint', 'inverse', 'doctor',\n"
+        "       'houdini'}\n"
+        "assert new <= {n.split('.', 1)[1] for n in names}, names\n"
         "import facedeform_tpu_torch.ops.cuda_precise as cp\n"
         "assert cp.evaluate_cuda_precise_frames.launches == 0 and cp.device_log.launches == 0\n"
     )
