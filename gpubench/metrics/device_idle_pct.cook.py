@@ -1,0 +1,6 @@
+"""1 - the union of the card's operation intervals over the wall of the
+profiled cooks."""
+
+
+def read(run):
+    return run.idle_pct() if run.unit == "cooks" else None
