@@ -222,6 +222,8 @@ import time
 import numpy as np
 import torch
 
+from facedeform_tpu_torch.utils import profiling
+
 # Tolerances of kernel vs plain version on the card (same inputs, f32):
 POS_TOL_DECAYING = 5e-6   # gaussian/IMQ/Wendland positions, absolute
 # growing bases (TPS/MQ/linear/cubic) carry |w| >> |disp|; the two sides
@@ -325,6 +327,14 @@ PEAK_BYTES = 3.35e12
 def _check(ok: bool, msg: str) -> None:
     if not ok:
         raise AssertionError(msg)
+
+
+def _launch_counts(fns, since: dict) -> dict:
+    """Kernel launches of each wrapper in fns (the counters
+    launches.<wrapper>, utils/profiling.py) since the counters read
+    `since`."""
+    return {fn.__name__: profiling.counter(f"launches.{fn.__name__}")
+            - since.get(f"launches.{fn.__name__}", 0) for fn in fns}
 
 
 def _bound(n_bytes: float, *work: tuple[float, float]) -> dict:
@@ -723,8 +733,7 @@ def main_path(dev, label: str) -> dict:
 
     counters = (cuda_eval.evaluate_cuda, cuda_eval.evaluate_cuda_culled,
                 cuda_eval.control_records, cuda_eval.culled_tables)
-    for fn in counters:
-        fn.launches = 0
+    since = profiling.counters()
     t0 = time.perf_counter()
     d = Deformer.fit(rest, deformed, DeformConfig(), DeformParams(), device=dev)
     auto_pts, auto_w = d.apply(pts)
@@ -735,7 +744,7 @@ def main_path(dev, label: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(zip(("dense", "culled", "records", "tables"),
-                        (fn.launches for fn in counters)))
+                        _launch_counts(counters, since).values()))
     print(f"main path: {wall:.3f} s wall (2 fits, 4 applies at {pts.shape[0]} "
           f"verts); launches {launches}  [{label}]", flush=True)
     _check(launches["culled"] > 0, "apply('auto') did not launch the culled kernel")
@@ -842,8 +851,7 @@ def main_path_frames(dev, label: str) -> dict:
 
     counters = (cuda_eval.evaluate_cuda_frames, cuda_eval.frames_stream,
                 cuda_jacobian.jacobian_cuda, cuda_jacobian.jacobian_cuda_frames)
-    for fn in counters:
-        fn.launches = 0
+    since = profiling.counters()
     t0 = time.perf_counter()
     model, resid = batched.fit_frames(rest, frames, cfg, params, device=dev)
     errors.check_frames(resid, rest, frames)
@@ -854,7 +862,7 @@ def main_path_frames(dev, label: str) -> dict:
     jac0 = d0.jacobian(pts)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = _launch_counts(counters, since)
     print(f"slice B main path: {wall:.3f} s wall (fit_frames of {n_frames} poses x "
           f"{n_ctrl} controls, apply_frames + transport_frames at {v} verts, "
           f"Deformer.jacobian); launches {launches}  [{label}]", flush=True)
@@ -1743,16 +1751,16 @@ def main_path_precise(dev, label: str) -> dict:
 
     counters = (cuda_precise.evaluate_cuda_precise, cuda_precise.evaluate_cuda_precise_frames,
                 cuda_eval.evaluate_cuda_diff)
-    for fn in counters:
-        fn.launches = 0
+    since = profiling.counters()
     per_apply = {}
     deformers, outs = {}, {}
     t0 = time.perf_counter()
     for kernel, cfg in cfgs.items():
-        before = cuda_precise.evaluate_cuda_precise.launches
+        before = profiling.counters()
         deformers[kernel] = Deformer.fit(rest, deformed, cfg, params, device=dev)
         outs[kernel] = deformers[kernel].apply(pts, dist2=cap_d2, frame=frame, group_mask=mask)
-        per_apply[kernel.name] = cuda_precise.evaluate_cuda_precise.launches - before
+        per_apply[kernel.name] = _launch_counts(
+            (cuda_precise.evaluate_cuda_precise,), before)["evaluate_cuda_precise"]
     shot_model, _ = batched.fit_frames(rest, shot, cfgs[RBFKernel.THIN_PLATE], params,
                                        device=dev)
     shot_out, shot_w = batched.apply_frames(shot_model, pts, cap_d2, mask.float(),
@@ -1763,7 +1771,7 @@ def main_path_precise(dev, label: str) -> dict:
     grads, grad_out = _grads(cuda_eval.evaluate_cuda_diff, *grad_args)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = _launch_counts(counters, since)
     print(f"slice C main path: {wall:.3f} s wall (TPS and MQ fits of {n_ctrl} controls, "
           f"apply('auto') at {v} verts, a {n_frames}-pose TPS shot, one gradient at "
           f"{n_diff} verts); launches {launches}, precise per apply('auto') {per_apply}  "
@@ -2332,7 +2340,7 @@ def main_path_pu(dev, label: str) -> dict:
     pts = torch.as_tensor(pts_np, device=dev)
     v = pts.shape[0]
 
-    cuda_pu.evaluate_pu_tiles.launches = 0
+    since = profiling.counters()
     t0 = time.perf_counter()
     d = pu.PUDeformer.fit(rest, frames[0], kernel=RBFKernel.THIN_PLATE, lam=1e-5, device=dev)
     torch.cuda.synchronize()
@@ -2340,11 +2348,11 @@ def main_path_pu(dev, label: str) -> dict:
     out = d.displacement(pts)
     torch.cuda.synchronize()
     t_disp = time.perf_counter() - t0 - t_fit
-    launches_mesh = cuda_pu.evaluate_pu_tiles.launches
+    launches_mesh = _launch_counts((cuda_pu.evaluate_pu_tiles,), since)["evaluate_pu_tiles"]
     at_ctrl = d.displacement(rest)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = cuda_pu.evaluate_pu_tiles.launches
+    launches = _launch_counts((cuda_pu.evaluate_pu_tiles,), since)["evaluate_pu_tiles"]
     k_, p_ = d.patches.idx.shape
     print(f"slice F main path (config 9): {wall:.3f} s wall (PUDeformer.fit of {len(rest)} "
           f"controls {t_fit:.3f} s: K={k_} patches of P={p_}; displacement at {v} verts incl. "
@@ -2436,7 +2444,7 @@ def main_path_pu_shot(dev, label: str) -> dict:
     frame = _sphere_frame(pts)
     cfg, params = DeformConfig(tangent=True), DeformParams(radius=1.2, falloffrate=1.5)
 
-    cuda_pu.evaluate_pu_tiles_frames.launches = 0
+    since = profiling.counters()
     t0 = time.perf_counter()
     seq = pu.PUSeqDeformer.fit(rest, frames, kernel=RBFKernel.THIN_PLATE, lam=1e-5, device=dev)
     torch.cuda.synchronize()
@@ -2445,7 +2453,8 @@ def main_path_pu_shot(dev, label: str) -> dict:
     pos, w = seq.apply_seq(pts, cap_d2, gate, cfg, params, frame=frame)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = cuda_pu.evaluate_pu_tiles_frames.launches
+    launches = _launch_counts((cuda_pu.evaluate_pu_tiles_frames,), since)[
+        "evaluate_pu_tiles_frames"]
     print(f"slice F shot (config 10): {wall:.3f} s wall (PUSeqDeformer.fit of {n_frames} poses "
           f"x {len(rest)} controls {t_fit:.3f} s, displacement_frames + apply_seq at {v} "
           f"verts); PU launches {launches}  [{label}]", flush=True)
@@ -3052,8 +3061,7 @@ def main_path_large_rigs(dev, label: str) -> dict:
     counters = (cuda_eval.evaluate_cuda, cuda_eval.evaluate_cuda_culled,
                 cuda_eval.control_records, cuda_eval.culled_tables,
                 cuda_precise.evaluate_cuda_precise, cuda_precise.evaluate_cuda_precise_frames)
-    for fn in counters:
-        fn.launches = 0
+    since = profiling.counters()
     t0 = time.perf_counter()
     results = {name: _large_rig(dev, name, cfg, params, n, rng, pts, idx, label)
                for name, (cfg, params, n) in rigs.items()}
@@ -3072,7 +3080,7 @@ def main_path_large_rigs(dev, label: str) -> dict:
     torch.cuda.synchronize()
     shot_s = time.perf_counter() - t_shot
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = _launch_counts(counters, since)
     print(f"large-rig main path: {wall:.3f} s wall (3 Krylov fits, 3 applies and 3 float64 "
           f"checks at {v} verts, a 4-pose TPS shot in {shot_s:.3f} s); launches {launches}  "
           f"[{label}]", flush=True)
@@ -3190,8 +3198,7 @@ def main_path_drag(dev, label: str) -> dict:
         rest = fibonacci_points(n)
         _, plan = Deformer.fit_with_plan(rest, next(drags(rest, 1)), cfg, params, device=dev)
         torch.cuda.synchronize()
-        for fn in counters:
-            fn.launches = 0
+        since = profiling.counters()
         refit_ms, apply_ms, fit_ms, equal = [], [], [], []
         t0 = time.perf_counter()
         for pose in drags(rest, n_drags):
@@ -3204,7 +3211,7 @@ def main_path_drag(dev, label: str) -> dict:
             fit_ms.append(ms)
             equal.append(same(d.model, ref.model))
         wall = time.perf_counter() - t0
-        launches = {fn.__name__: fn.launches for fn in counters}
+        launches = _launch_counts(counters, since)
         r, a, f = (stats(x) for x in (refit_ms, apply_ms, fit_ms))
         print(f"drag {name} {n}: {n_drags} drags in {wall:.3f} s wall; refit {r[0]:.4f} ms best, "
               f"{r[1]:.4f} median; fit of the same poses {f[0]:.4f} ms best, {f[1]:.4f} "
@@ -3392,8 +3399,7 @@ def main_path_capture(dev, label: str, n_side: int = 1000, decimate_n: int = DEC
     counters = (cuda_eval.evaluate_cuda, cuda_eval.evaluate_cuda_culled,
                 cuda_eval.control_records, cuda_eval.culled_tables,
                 cuda_eval.evaluate_cuda_frames, cuda_eval.frames_stream)
-    for fn in counters:
-        fn.launches = 0
+    since = profiling.counters()
     t_phase = time.perf_counter()
     rng = np.random.default_rng(8)
     mesh = uv_sphere(n_side, n_side)
@@ -3699,7 +3705,7 @@ def main_path_capture(dev, label: str, n_side: int = 1000, decimate_n: int = DEC
     _check(e_loo <= LOOCV_RTOL, "LOOCV's closed form disagrees with explicit refits")
 
     wall = time.perf_counter() - t_phase
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = _launch_counts(counters, since)
     if on_card:
         # the device steps alone: CUDA events over interleaved rounds, one
         # warm-up call each (benchmark.time_cuda), after the counters are read
@@ -3877,8 +3883,7 @@ def main_path_node(dev, label: str, n_side: int = 1000, pu_n: int = NODE_PU_N,
     params = DeformParams(radius=CAPTURE_RADIUS, maxedges=CAPTURE_MAXEDGES)
     kw = dict(update_normals=True, transform_attrs=["v"], output_stretch=True)
     t_setup = time.perf_counter() - t_phase
-    for fn in counters:
-        fn.launches = 0
+    since = profiling.counters()
     t_cooks = time.perf_counter()
     walls = {}
 
@@ -3967,7 +3972,7 @@ def main_path_node(dev, label: str, n_side: int = 1000, pu_n: int = NODE_PU_N,
     show(f"9e two secondaries of {secondary[0].num_points} verts + recompute_normals", res_e,
          wall, times)
     t_cooks = time.perf_counter() - t_cooks
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = _launch_counts(counters, since)
     print(f"node cook: launches {launches}  [{label}]", flush=True)
 
     # ---- checks (their launches are not counted)
@@ -4159,8 +4164,7 @@ def main_path_export(dev, label: str, shared: dict = None, n_side: int = 1000,
         print(f"10{msg}  [{label}]", flush=True)
 
     t_setup = time.perf_counter() - t_phase
-    for fn in counters:
-        fn.launches = 0
+    since = profiling.counters()
     tmp = tempfile.TemporaryDirectory(prefix="facedeform_export_")
     d = tmp.name
     try:
@@ -4402,11 +4406,12 @@ def main_path_export(dev, label: str, shared: dict = None, n_side: int = 1000,
             f"{walls[cold]:.2f} s")
         _check(all(e <= GRAD_ROUTE_TOL for e in route_errs.values()),
                f"the card's gradient route differs from the CPU route: {route_errs}")
-        diff_before = cuda_eval.evaluate_cuda_diff.launches
+        diff_before = profiling.counters()
         ginv = wall("10d fit_rig gradient path", lambda: fit_rig(
             g_rest, pts_t, g_target, cfg_ml, params_ml, max_iters=grad_iters,
             learning_rate=0.05, ridge=1e-6, subsample=INVERSE_SUBSAMPLE, device=dev))
-        diff_launches = cuda_eval.evaluate_cuda_diff.launches - diff_before
+        diff_launches = _launch_counts((cuda_eval.evaluate_cuda_diff,), diff_before)[
+            "evaluate_cuda_diff"]
         g_refit = Deformer.fit(g_rest, ginv.deformed_ctrl, cfg_ml, params_ml,
                                device=dev).apply(pts_t)[0]
         base = float((g_target - pts_t).abs().max())
@@ -4496,7 +4501,7 @@ def main_path_export(dev, label: str, shared: dict = None, n_side: int = 1000,
                 sys.modules["hou"] = saved_hou
     finally:
         tmp.cleanup()
-    launches = {fn.__name__: fn.launches for fn in counters}
+    launches = _launch_counts(counters, since)
     wall_s = time.perf_counter() - t_phase
     print(f"export: launches {launches}  [{label}]", flush=True)
     print(f"export: {wall_s:.1f} s wall (set-up {t_setup:.1f} s)  [{label}]", flush=True)

@@ -25,7 +25,7 @@ from facedeform_tpu_torch.ops.fit import RBFModel
 from facedeform_tpu_torch.ops.precise_eval import GROWING_KERNELS, evaluate_precise
 from facedeform_tpu_torch.ops.solve import SolveReport
 from facedeform_tpu_torch.ops.tangent import project_to_tangents
-from facedeform_tpu_torch.utils import errors
+from facedeform_tpu_torch.utils import errors, profiling
 
 _BACKENDS = ("dense", "dense_precise", "cuda", "cuda_culled", "cuda_precise")
 
@@ -53,8 +53,8 @@ def apply_fn(model: RBFModel, points, dist2, frame, group_mask, cfg: DeformConfi
     """Pure deformation step on the model's device, the plain f32 field:
     (new_points (V, 3), fd_falloff (V,)).  frame (u, v, n) projects when
     cfg.tangent; group_mask (V,) bool restricts; either may be None."""
-    points = torch.as_tensor(points, dtype=torch.float32, device=model.device)
-    dist2 = torch.as_tensor(dist2, dtype=torch.float32, device=model.device)
+    points = profiling.to_device(points, model.device, torch.float32)
+    dist2 = profiling.to_device(dist2, model.device, torch.float32)
     return _apply_plain(evaluate, model, points, dist2, frame, group_mask, cfg, params)
 
 
@@ -102,8 +102,8 @@ class Deformer:
                 "solver='pu' is not a Deformer route — use "
                 "ops.pu.PUDeformer.fit (or ops.pu.PUSeqDeformer.fit for a shot)"
             )
-        rest_ctrl = torch.as_tensor(rest_ctrl, dtype=torch.float32, device=device)
-        deformed_ctrl = torch.as_tensor(deformed_ctrl, dtype=torch.float32, device=device)
+        rest_ctrl = profiling.to_device(rest_ctrl, device, torch.float32)
+        deformed_ctrl = profiling.to_device(deformed_ctrl, device, torch.float32)
         if rest_ctrl.shape != deformed_ctrl.shape:
             raise errors.ShapeMismatchError(
                 f"rest and deform rigs must match: {tuple(rest_ctrl.shape)} vs "
@@ -157,7 +157,7 @@ class Deformer:
                        confidence=confidence, device=device, want_plan=True)
 
     def _points(self, points) -> torch.Tensor:
-        return torch.as_tensor(points, dtype=torch.float32, device=self.model.device)
+        return profiling.to_device(points, self.model.device, torch.float32)
 
     def displacement(self, points) -> torch.Tensor:
         """Raw RBF displacement field at points (V, 3) -> (V, 3); growing
@@ -242,14 +242,12 @@ class Deformer:
         if dist2 is None:
             dist2 = torch.zeros(v, dtype=torch.float32, device=dev)
         else:
-            dist2 = torch.as_tensor(dist2, dtype=torch.float32, device=dev).contiguous()
+            dist2 = profiling.to_device(dist2, dev, torch.float32).contiguous()
         if frame is not None:
-            frame = tuple(
-                torch.as_tensor(f, dtype=torch.float32, device=dev).contiguous()
-                for f in frame
-            )
+            frame = tuple(profiling.to_device(f, dev, torch.float32).contiguous()
+                          for f in frame)
         if group_mask is not None:
-            group_mask = torch.as_tensor(group_mask, dtype=torch.bool, device=dev)
+            group_mask = profiling.to_device(group_mask, dev, torch.bool)
         frame = frame if self.cfg.tangent and frame is not None else None
         kernel = fit_mod.effective_kernel(self.cfg)
         if backend == "auto":
@@ -293,12 +291,11 @@ class Deformer:
     def _apply_sorted(self, points, dist2, frame, group_mask, backend, spatial_perm):
         """apply() in the Z-order of spatial_perm, scattered back."""
         points = self._points(points)
-        perm, inv = (torch.as_tensor(p, dtype=torch.int64, device=points.device)
+        perm, inv = (profiling.to_device(p, points.device, torch.int64)
                      for p in spatial_perm)
 
         def gather(t, dtype):
-            return None if t is None else torch.as_tensor(
-                t, dtype=dtype, device=points.device)[perm]
+            return None if t is None else profiling.to_device(t, points.device, dtype)[perm]
 
         new_s, w_s = self.apply(
             points[perm], dist2=gather(dist2, torch.float32),
@@ -344,7 +341,7 @@ class FitPlan:
         device="cuda",
     ) -> "FitPlan":
         """Assemble and factor on `device` without a pose (ops/fit.prepare)."""
-        rest_ctrl = torch.as_tensor(rest_ctrl, dtype=torch.float32, device=device)
+        rest_ctrl = profiling.to_device(rest_ctrl, device, torch.float32)
         if confidence is not None:
             confidence = fit_mod.confidence_clipped(confidence, rest_ctrl.shape[0], device)
         factors = fit_mod.prepare(rest_ctrl, cfg.solve_view(), params, confidence=confidence)
@@ -358,15 +355,16 @@ class FitPlan:
         """Re-solve for a new pose of the planned rest rig, on the plan's
         device: ShapeMismatchError on a pose of another rig size,
         SolveFailedError through errors.check_solve at the dense route's
-        threshold."""
-        ctrl = self.factors.ctrl
-        deformed_ctrl = torch.as_tensor(deformed_ctrl, dtype=torch.float32, device=ctrl.device)
-        if deformed_ctrl.shape != ctrl.shape:
-            raise errors.ShapeMismatchError(
-                f"planned rest rig has {tuple(ctrl.shape)} points but the pose has "
-                f"{tuple(deformed_ctrl.shape)}"
-            )
-        model, report = fit_mod.refit(self.factors, deformed_ctrl, self.cfg.solve_view())
-        if check:
-            errors.check_solve(report, rtol=errors.SOLVE_BACKWARD_RTOL)
-        return Deformer(model=model, cfg=self.cfg, params=self.params, report=report)
+        threshold.  A span, fit.refit."""
+        with profiling.span("fit.refit"):
+            ctrl = self.factors.ctrl
+            deformed_ctrl = profiling.to_device(deformed_ctrl, ctrl.device, torch.float32)
+            if deformed_ctrl.shape != ctrl.shape:
+                raise errors.ShapeMismatchError(
+                    f"planned rest rig has {tuple(ctrl.shape)} points but the pose has "
+                    f"{tuple(deformed_ctrl.shape)}"
+                )
+            model, report = fit_mod.refit(self.factors, deformed_ctrl, self.cfg.solve_view())
+            if check:
+                errors.check_solve(report, rtol=errors.SOLVE_BACKWARD_RTOL)
+            return Deformer(model=model, cfg=self.cfg, params=self.params, report=report)

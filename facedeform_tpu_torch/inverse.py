@@ -43,7 +43,7 @@ from facedeform_tpu_torch.ops.cuda_eval import evaluate_cuda_diff
 from facedeform_tpu_torch.ops.evaluate import evaluate
 from facedeform_tpu_torch.ops.falloff import falloff_weight
 from facedeform_tpu_torch.ops.kernels import apply_kernel, pairwise_sqdist
-from facedeform_tpu_torch.ops.solve import cholesky_solve_refined
+from facedeform_tpu_torch.ops.solve import cholesky_solve_refined, lu_solve
 from facedeform_tpu_torch.ops.tangent import project_to_tangents
 from facedeform_tpu_torch.utils.precision import highest_precision
 
@@ -76,7 +76,7 @@ def _linear_map_matrix(rest_ctrl: torch.Tensor, points: torch.Tensor, cfg: Defor
     # of A^T against V right-hand sides (A is not symmetric in QNN mode)
     with highest_precision():
         lu, piv = torch.linalg.lu_factor(a.T)
-        z = torch.linalg.lu_solve(lu, piv, phi_full.T)
+        z = lu_solve(lu, piv, phi_full.T)
     return z[:n].T
 
 

@@ -45,8 +45,10 @@ from facedeform_tpu_torch.deformer import Deformer
 from facedeform_tpu_torch.geometry.mesh import Mesh
 from facedeform_tpu_torch.ops import dbse as dbse_ops
 from facedeform_tpu_torch.ops.pu import _host
-from facedeform_tpu_torch.utils import errors
+from facedeform_tpu_torch.utils import errors, profiling
 from facedeform_tpu_torch.utils.profiling import StageTimes, stage
+
+profiling.count("eval.autotune_runs", 0)
 
 #: the autotune's candidates (Deformer.apply backends) and the mesh size
 #: below which it defers to apply's own "auto" (the culled kernel's
@@ -168,7 +170,7 @@ class FaceDeformNode:
         hit = self._dev_inputs.get(name)
         if hit is not None and hit[0] == (key, dev):
             return hit[1]
-        t = torch.as_tensor(np.ascontiguousarray(array), dtype=dtype, device=dev)
+        t = profiling.to_device(np.ascontiguousarray(array), dev, dtype)
         self._dev_inputs[name] = ((key, dev), t)
         return t
 
@@ -355,7 +357,7 @@ class FaceDeformNode:
                 mesh.num_points, unique_edges(mesh.faces),
                 max_degree=TRANSPORT_MAX_DEGREE,
             )
-            self._nbr_table = torch.as_tensor(nbr, dtype=torch.int64, device=dev)
+            self._nbr_table = profiling.to_device(nbr, dev, torch.int64)
             self._nbr_key = key
         return self._nbr_table
 
@@ -370,7 +372,7 @@ class FaceDeformNode:
 
             nbr = self._transport_neighbors(mesh, dev)
             self._grad_plan = field_gradient_plan(
-                torch.as_tensor(mesh.points, dtype=torch.float32, device=dev), nbr
+                profiling.to_device(mesh.points, dev, torch.float32), nbr
             )
             self._grad_plan_key = key
         return self._nbr_table, self._grad_plan
@@ -406,22 +408,25 @@ class FaceDeformNode:
         key = (mesh_in.pos_id, self._fit_key)
         if key != self._backend_key:
             timings = {}
-            for cand in AUTOTUNE_BACKENDS:
-                def run():
-                    return deformer.apply(points, dist2=dist2, frame=frame,
-                                          group_mask=group_mask, backend=cand)
+            profiling.count("eval.autotune_runs")
+            with profiling.span("eval.autotune"):
+                for cand in AUTOTUNE_BACKENDS:
+                    def run():
+                        return deformer.apply(points, dist2=dist2, frame=frame,
+                                              group_mask=group_mask, backend=cand)
 
-                run()  # warm-up: first launch, lazy build
-                best = float("inf")
-                for _ in range(2):
-                    start = torch.cuda.Event(enable_timing=True)
-                    end = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    run()
-                    end.record()
-                    end.synchronize()
-                    best = min(best, start.elapsed_time(end))
-                timings[cand] = best
+                    run()  # warm-up: first launch, lazy build
+                    best = float("inf")
+                    for _ in range(2):
+                        start = torch.cuda.Event(enable_timing=True)
+                        end = torch.cuda.Event(enable_timing=True)
+                        start.record()
+                        run()
+                        end.record()
+                        with profiling.blocking(deformer.model.device):
+                            end.synchronize()
+                        best = min(best, start.elapsed_time(end))
+                    timings[cand] = best
             self.backend_timings = timings
             self._backend_choice = min(timings, key=timings.get)
             self._backend_key = key
@@ -450,6 +455,7 @@ class FaceDeformNode:
         return psd, psd.model.corrections
 
     # ------------------------------------------------------------------ cook
+    @profiling.traced("FaceDeformNode.cook")
     def cook(
         self,
         inputs: Sequence[Mesh],
@@ -751,13 +757,14 @@ class FaceDeformNode:
         deformer = self._deformer
         rep = deformer.report
         # the report's scalars in ONE device -> host transfer
-        scalars = [rep.residual_norm, rep.rhs_norm]
-        if rep.scale_norm is not None:
-            scalars += [rep.backward_error(), rep.cond_est]
-        vals = torch.stack([
-            torch.full((), float("nan"), device=rep.residual_norm.device) if x is None
-            else x.float().reshape(()) for x in scalars
-        ]).cpu().numpy()
+        with profiling.span("cook.report"):
+            scalars = [rep.residual_norm, rep.rhs_norm]
+            if rep.scale_norm is not None:
+                scalars += [rep.backward_error(), rep.cond_est]
+            vals = profiling.to_host(torch.stack([
+                torch.full((), float("nan"), device=rep.residual_norm.device) if x is None
+                else x.float().reshape(()) for x in scalars
+            ])).numpy()
         if rep.scale_norm is not None:
             messages.append(
                 f"Solve residual: {vals[0]:.3e} (rhs {vals[1]:.3e}, "
@@ -788,25 +795,27 @@ class FaceDeformNode:
         if capture is not None:
             dist2 = self._on_device("dist2", self._capture_key, capture.dist2, dev)
         mask_t = (None if group_mask is None
-                  else torch.as_tensor(np.asarray(group_mask, bool), device=dev))
+                  else profiling.to_device(np.asarray(group_mask, bool), dev))
         with stage("eval", times):
             backend = self._choose_backend(
                 mesh_in, deformer, rest_pts, dist2, frame, mask_t
             )
-            if isinstance(deformer, _PUND):
-                # plan keyed on the mesh positions' data id: no per-cook
-                # content hash of the full point buffer
-                new_pts, falloff = deformer.apply(
-                    rest_pts, dist2=dist2, frame=frame,
-                    group_mask=mask_t, backend=backend,
-                    plan_key=(mesh_in.pos_id, out.num_points),
-                )
-            else:
-                new_pts, falloff = deformer.apply(
-                    rest_pts, dist2=dist2, frame=frame,
-                    group_mask=mask_t, backend=backend,
-                )
-            falloff_host = _host(falloff)
+            with profiling.span("eval.apply"):
+                if isinstance(deformer, _PUND):
+                    # plan keyed on the mesh positions' data id: no per-cook
+                    # content hash of the full point buffer
+                    new_pts, falloff = deformer.apply(
+                        rest_pts, dist2=dist2, frame=frame,
+                        group_mask=mask_t, backend=backend,
+                        plan_key=(mesh_in.pos_id, out.num_points),
+                    )
+                else:
+                    new_pts, falloff = deformer.apply(
+                        rest_pts, dist2=dist2, frame=frame,
+                        group_mask=mask_t, backend=backend,
+                    )
+            with profiling.span("eval.falloff_copy"):
+                falloff_host = _host(falloff)
         self.last_backend = backend
         out.set_attr("fd_falloff", falloff_host)
 
@@ -834,30 +843,34 @@ class FaceDeformNode:
                         "dbse_robust requires the least-squares weight path "
                         "(dbse_lstsq=True); ignoring it for the parity recipe."
                     )
-                if cfg.dbse_lstsq:
-                    fn = dbse_ops.weights_robust if cfg.dbse_robust else dbse_ops.weights_lstsq
-                    w, w_report = fn(dbse_model, cur, rest_attr)
-                    try:
-                        errors.check_solve(w_report)
-                        ok = True
-                    except errors.SolveFailedError:
-                        ok = False
-                else:
-                    w = dbse_ops.weights_parity(dbse_model, cur, rest_attr)
-                    ok = bool(torch.isfinite(w).all())
+                with profiling.span("morph.weights"):
+                    if cfg.dbse_lstsq:
+                        fn = (dbse_ops.weights_robust if cfg.dbse_robust
+                              else dbse_ops.weights_lstsq)
+                        w, w_report = fn(dbse_model, cur, rest_attr)
+                        try:
+                            errors.check_solve(w_report)
+                            ok = True
+                        except errors.SolveFailedError:
+                            ok = False
+                    else:
+                        w = dbse_ops.weights_parity(dbse_model, cur, rest_attr)
+                        ok = bool(profiling.to_host(torch.isfinite(w).all()))
                 if not ok:
                     warnings.append(
                         "Can't compute weights for morphspace deformation. Ignoring it."
                     )
                 else:
-                    morphed = dbse_ops.morph_apply(dbse_model, cur, rest_attr, w, cfg, params)
-                    if mask_t is not None:
-                        # group contract: the blend reconstruction writes all
-                        # V rows; off-group vertices keep the (already gated)
-                        # eval output
-                        morphed = torch.where(mask_t[:, None], morphed, new_pts)
-                    new_pts = morphed
-                    weights_out = _host(w)
+                    with profiling.span("morph.apply"):
+                        morphed = dbse_ops.morph_apply(dbse_model, cur, rest_attr, w, cfg,
+                                                       params)
+                        if mask_t is not None:
+                            # group contract: the blend reconstruction writes
+                            # all V rows; off-group vertices keep the
+                            # (already gated) eval output
+                            morphed = torch.where(mask_t[:, None], morphed, new_pts)
+                        new_pts = morphed
+                        weights_out = _host(w)
                     out.detail_attrs["weights"] = weights_out
 
         # -------------------------------------------------------- psd pass
@@ -1112,7 +1125,7 @@ class FaceDeformNode:
             # rest-frame corrections ride the query pose's rigid rotation
             # back to world (rigid equivariance)
             with highest_precision():
-                delta = delta @ torch.as_tensor(r_q.T, device=new_pts.device)
+                delta = delta @ profiling.to_device(r_q.T, new_pts.device)
         if mask_t is not None:
             # group contract (src/SOP_FaceDeform.cpp:485): a model fitted
             # without (or with another) group is gated here too

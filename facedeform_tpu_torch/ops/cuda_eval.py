@@ -12,7 +12,8 @@ Counterpart of facedeform_tpu/ops/pallas_eval.py:
 
 A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches its kernel or raises; it never falls back.  Each
-wrapper counts its launches in its `launches` attribute.  The dense and
+wrapper counts its launches in the counter launches.<wrapper>
+(utils/profiling.py).  The dense and
 culled kernels read the controls as packed records, built once per call on
 the card (control_records, culled_tables; their plain twins
 control_records_reference, culled_tables_reference); the culled kernel
@@ -49,6 +50,11 @@ from facedeform_tpu_torch.ops.falloff import falloff_weight
 from facedeform_tpu_torch.ops.fit import RBFModel
 from facedeform_tpu_torch.ops.morton import morton_codes
 from facedeform_tpu_torch.ops.tangent import project_to_tangents
+from facedeform_tpu_torch.utils import profiling
+
+for _name in ("control_records", "evaluate_cuda", "evaluate_cuda_diff", "culled_tables",
+              "evaluate_cuda_culled", "frames_stream", "evaluate_cuda_frames"):
+    profiling.count(f"launches.{_name}", 0)
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _NVCC_FLAGS = (
@@ -319,11 +325,8 @@ def control_records(model):
             model.ctrl.data_ptr(), model.w_rbf.data_ptr(), model.eps.data_ptr(),
             model.w_poly.data_ptr(), rec.data_ptr(), wp.data_ptr(), model.w_poly.shape[0],
             n, n_layers, _stream(dev)), "fd_pack_records")
-    control_records.launches += 1
+    profiling.count("launches.control_records")
     return rec, wp
-
-
-control_records.launches = 0
 
 
 def evaluate_cuda(
@@ -357,11 +360,8 @@ def evaluate_cuda(
             falloff.data_ptr(), v, n, model.w_rbf.shape[0], int(kernel),
             int(strict_parity), int(_center_phi(kernel, term)),
             _r2(radius), float(falloffrate), _stream(points.device)), "fd_eval_dense")
-    evaluate_cuda.launches += 1
+    profiling.count("launches.evaluate_cuda")
     return out, falloff
-
-
-evaluate_cuda.launches = 0
 
 
 class _EvalDiff(torch.autograd.Function):
@@ -379,7 +379,7 @@ class _EvalDiff(torch.autograd.Function):
         out = evaluate_cuda(RBFModel(ctrl, w_rbf, w_poly, eps), points, dist2, gate,
                             radius, rate, kernel, term, strict_parity, frame)
         if points.device.type == "cuda":
-            evaluate_cuda_diff.launches += 1
+            profiling.count("launches.evaluate_cuda_diff")
         ctx.static = static
         ctx.numbers = [None if isinstance(t, torch.Tensor) else t for t in inputs]
         ctx.save_for_backward(*(t if isinstance(t, torch.Tensor) else None for t in inputs))
@@ -422,9 +422,6 @@ def evaluate_cuda_diff(
         (RBFKernel(kernel), PolyTerm(term), bool(strict_parity)),
         model.ctrl, model.w_rbf, model.w_poly, model.eps, points, dist2, gate,
         radius, falloffrate, u, v, n)
-
-
-evaluate_cuda_diff.launches = 0
 
 
 def _sorted_controls(model):
@@ -513,11 +510,8 @@ def culled_tables(model, kernel: RBFKernel):
             model.w_poly.data_ptr(), order.data_ptr(), rec.data_ptr(), bbox.data_ptr(),
             sub.data_ptr(), wp.data_ptr(), model.w_poly.shape[0], n, n_layers, nb,
             _CULL_S_CUTOFF[RBFKernel(kernel)], stream), "fd_cull_pack")
-    culled_tables.launches += 1
+    profiling.count("launches.culled_tables")
     return rec, bbox, sub, wp
-
-
-culled_tables.launches = 0
 
 
 def evaluate_cuda_culled(
@@ -562,11 +556,8 @@ def evaluate_cuda_culled(
             bbox.shape[0],
             model.w_rbf.shape[0], int(RBFKernel(kernel)), int(strict_parity),
             _r2(radius), float(falloffrate), _stream(points.device)), "fd_eval_culled")
-    evaluate_cuda_culled.launches += 1
+    profiling.count("launches.evaluate_cuda_culled")
     return out, falloff
-
-
-evaluate_cuda_culled.launches = 0
 
 
 def _pairs_ptr(pairs, dev):
@@ -710,11 +701,8 @@ def frames_stream(model, f0: int, nf: int, nt: int):
             model.w_poly.data_ptr(), stream.data_ptr(), tails.data_ptr(),
             model.w_poly.shape[1], n, n_layers, n_frames, f0, nf, nt, _stream(dev)),
             "fd_frames_pack")
-    frames_stream.launches += 1
+    profiling.count("launches.frames_stream")
     return stream, tails
-
-
-frames_stream.launches = 0
 
 
 def evaluate_cuda_frames(
@@ -754,8 +742,5 @@ def evaluate_cuda_frames(
                 v, n, n_layers, operands.shape[0], n_frames, f0, nf, nt, int(kernel),
                 int(strict_parity), int(_center_phi(kernel, term)),
                 _r2(radius), float(falloffrate), stream), "fd_eval_frames")
-            evaluate_cuda_frames.launches += 1
+            profiling.count("launches.evaluate_cuda_frames")
     return out, falloff
-
-
-evaluate_cuda_frames.launches = 0

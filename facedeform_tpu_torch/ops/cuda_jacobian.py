@@ -20,7 +20,8 @@ controls (_pack_launch).
 
 A wrapper runs the plain version only for tensors on the CPU.  For CUDA
 tensors it launches the kernel or raises; it never falls back.  Each
-wrapper counts its launches in its `launches` attribute.  The kernel is
+wrapper counts its launches in the counter launches.<wrapper>
+(utils/profiling.py).  The kernel is
 built with the eval kernels (ops.cuda_eval.build) at first use.
 """
 
@@ -32,7 +33,11 @@ from facedeform_tpu_torch.config import PolyTerm, RBFKernel
 from facedeform_tpu_torch.ops import cuda_eval, tf32
 from facedeform_tpu_torch.ops.jacobian import displacement_jacobian
 from facedeform_tpu_torch.ops.kernels import phi_prime_s
+from facedeform_tpu_torch.utils import profiling
 from facedeform_tpu_torch.utils.precision import highest_precision
+
+for _name in ("jacobian_cuda", "jacobian_cuda_frames"):
+    profiling.count(f"launches.{_name}", 0)
 
 # Frames per launch: 3 weight columns a frame in at most 3 n8 tiles of the
 # mma (kMaxJacTiles in csrc/jacobian.cu); the wrapper loops over chunks.
@@ -121,7 +126,7 @@ def _pack_launch(ctrl, u, inv_eps2, f0: int, nf: int):
 def _launch(ctrl, w_rbf, eps, w_poly, points, kernel, term, counter) -> torch.Tensor:
     """w_rbf (F, L, N, 3), w_poly (F, m, 3) -> (F, V, 3, 3) on the card;
     one launch per JAC_FRAMES_PER_LAUNCH frames, each counted on
-    `counter.launches`."""
+    the counter named `counter`."""
     dev = points.device
     if points.ndim != 2 or points.shape[1] != 3:
         raise ValueError(f"points must be (V, 3), got {tuple(points.shape)}")
@@ -154,7 +159,7 @@ def _launch(ctrl, w_rbf, eps, w_poly, points, kernel, term, counter) -> torch.Te
             )
             if err != 0:
                 raise RuntimeError(f"fd_jacobian launch failed: CUDA error {err}")
-            counter.launches += 1
+            profiling.count(counter)
     return _tail(out, w_poly, term)
 
 
@@ -172,10 +177,7 @@ def jacobian_cuda(model, points, kernel: RBFKernel, term: PolyTerm) -> torch.Ten
     if not _on_card(points, "jacobian_cuda"):
         return displacement_jacobian(model, points, kernel, term)
     return _launch(model.ctrl, model.w_rbf[None], model.eps, model.w_poly[None],
-                   points, kernel, term, jacobian_cuda)[0]
-
-
-jacobian_cuda.launches = 0
+                   points, kernel, term, "launches.jacobian_cuda")[0]
 
 
 def jacobian_cuda_frames(model, points, kernel: RBFKernel, term: PolyTerm) -> torch.Tensor:
@@ -185,7 +187,4 @@ def jacobian_cuda_frames(model, points, kernel: RBFKernel, term: PolyTerm) -> to
     if not _on_card(points, "jacobian_cuda_frames"):
         return jacobian_frames_reference(model, points, kernel, term)
     return _launch(model.ctrl, model.w_rbf, model.eps, model.w_poly,
-                   points, kernel, term, jacobian_cuda_frames)
-
-
-jacobian_cuda_frames.launches = 0
+                   points, kernel, term, "launches.jacobian_cuda_frames")

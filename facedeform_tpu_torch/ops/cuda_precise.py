@@ -16,7 +16,8 @@ ops/precise_eval.py).  One kernel serves both wrappers: a shot's frames
 share d2, s and phi and take one launch per PRECISE_FRAMES_PER_LAUNCH
 frames; one pose is the same kernel at one frame.  The wrappers run the
 plain twins only for tensors on the CPU; for CUDA tensors they launch the
-kernel or raise.  Each counts its launches in its `launches` attribute.
+kernel or raise.  Each counts its launches in the counter launches.<wrapper>
+(utils/profiling.py).
 The kernel is built with the others by ops.cuda_eval.build().
 
 The thin-plate basis takes the kernel's own log (Tang's table method, see
@@ -37,6 +38,10 @@ from facedeform_tpu_torch.ops import cuda_eval
 from facedeform_tpu_torch.ops.falloff import falloff_weight
 from facedeform_tpu_torch.ops.precise_eval import evaluate_precise, inv_eps2_64, weights_64
 from facedeform_tpu_torch.ops.tangent import project_to_tangents
+from facedeform_tpu_torch.utils import profiling
+
+for _name in ("device_log", "evaluate_cuda_precise", "evaluate_cuda_precise_frames"):
+    profiling.count(f"launches.{_name}", 0)
 
 # Frames per launch (kMaxFrames in csrc/precise.cu): each thread holds
 # 3 FB double accumulators for each of its two vertices.
@@ -75,7 +80,7 @@ def log_table(device) -> torch.Tensor:
     """log_table_np() on `device`, built once per device."""
     dev = torch.device(device)
     if dev not in _tables:
-        _tables[dev] = torch.as_tensor(log_table_np(), device=dev).contiguous()
+        _tables[dev] = profiling.to_device(log_table_np(), dev).contiguous()
     return _tables[dev]
 
 
@@ -136,11 +141,8 @@ def device_log(s: torch.Tensor) -> torch.Tensor:
             torch.cuda.current_stream(s.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fd_log_probe launch failed: CUDA error {err}")
-    device_log.launches += 1
+    profiling.count("launches.device_log")
     return out
-
-
-device_log.launches = 0
 
 
 def evaluate_precise_reference(
@@ -177,7 +179,8 @@ def evaluate_precise_frames_reference(
 def _launch(model, w_pack, w_poly, points, dist2, gate, radius, falloffrate, kernel,
             strict_parity, frame, counter) -> tuple[torch.Tensor, torch.Tensor]:
     """One kernel launch per PRECISE_FRAMES_PER_LAUNCH frames of the packed
-    float64 weights (L, N, 3F) and tails (4, 3F); counts into `counter`."""
+    float64 weights (L, N, 3F) and tails (4, 3F); counts into the counter
+    named `counter`."""
     v, n = points.shape[0], model.ctrl.shape[0]
     n_layers, n_frames = w_pack.shape[0], w_pack.shape[2] // 3
     out = torch.empty((n_frames, v, 3), dtype=torch.float32, device=points.device)
@@ -201,7 +204,7 @@ def _launch(model, w_pack, w_poly, points, dist2, gate, radius, falloffrate, ker
             )
             if err != 0:
                 raise RuntimeError(f"fd_eval_precise launch failed: CUDA error {err}")
-            counter.launches += 1
+            profiling.count(counter)
     return out, falloff
 
 
@@ -234,11 +237,9 @@ def evaluate_cuda_precise(
     w_poly = torch.zeros((4, 3), dtype=torch.float64, device=points.device)
     w_poly[: wp.shape[0]] = wp
     out, falloff = _launch(model, w.contiguous(), w_poly, points, dist2, gate, radius,
-                           falloffrate, kernel, strict_parity, frame, evaluate_cuda_precise)
+                           falloffrate, kernel, strict_parity, frame,
+                           "launches.evaluate_cuda_precise")
     return out[0], falloff
-
-
-evaluate_cuda_precise.launches = 0
 
 
 def evaluate_cuda_precise_frames(
@@ -271,7 +272,4 @@ def evaluate_cuda_precise_frames(
     w_poly = w_poly.permute(1, 0, 2).reshape(4, 3 * n_frames).contiguous()
     return _launch(batched_model, cuda_eval.pack_frames(w), w_poly, points, dist2, gate,
                    radius, falloffrate, kernel, strict_parity, frame,
-                   evaluate_cuda_precise_frames)
-
-
-evaluate_cuda_precise_frames.launches = 0
+                   "launches.evaluate_cuda_precise_frames")

@@ -20,7 +20,8 @@ frame of a shot equals its one-pose launch within the kernel's tolerance,
 not bit for bit (frames of any two shot launches are bit-equal).  The
 wrapper runs the plain twin only for tensors on the CPU; for CUDA tensors
 it launches the kernel or raises.  Each entry counts its own launches,
-in evaluate_pu_tiles.launches and evaluate_pu_tiles_frames.launches.  The kernel is built with the others by
+in the counters launches.evaluate_pu_tiles and
+launches.evaluate_pu_tiles_frames (utils/profiling.py).  The kernel is built with the others by
 ops.cuda_eval.build().
 """
 
@@ -33,7 +34,11 @@ from facedeform_tpu_torch.config import RBFKernel
 from facedeform_tpu_torch.ops import cuda_eval, tf32
 from facedeform_tpu_torch.ops.kernels import apply_kernel
 from facedeform_tpu_torch.ops.pu import _TILES_PER_BLOCK, coverage_and_fallback
+from facedeform_tpu_torch.utils import profiling
 from facedeform_tpu_torch.utils.precision import highest_precision
+
+for _name in ("evaluate_pu_tiles", "evaluate_pu_tiles_frames"):
+    profiling.count(f"launches.{_name}", 0)
 
 # Frames per launch: the kernel keeps 3F columns per point in registers,
 # at most 6 n8 tiles of the mma, so longer shots loop over chunks.
@@ -276,13 +281,13 @@ def evaluate_pu_tiles_reference(models, points, plan: PUTilePlan,
     return out_z[inv_perm.long()].reshape(v, f_n, 3).transpose(0, 1).contiguous()
 
 
-def _tiles(models, points, plan: PUTilePlan, kernel: RBFKernel, counter) -> torch.Tensor:
+def _tiles(models, points, plan: PUTilePlan, kernel: RBFKernel, entry: str) -> torch.Tensor:
     """(F, V, 3) through the plain twin on CPU tensors, else the kernel;
-    each launch adds one to `counter.launches`."""
+    each launch adds one to the counter launches.<entry>."""
     if points.device.type == "cpu":
         return evaluate_pu_tiles_reference(models, points, plan, kernel)
     if points.device.type != "cuda":
-        raise ValueError(f"{counter.__name__} takes CPU or CUDA tensors, got {points.device}")
+        raise ValueError(f"{entry} takes CPU or CUDA tensors, got {points.device}")
     _check_plan(points, plan)
     tile_v, num_points = plan.tile_v, plan.num_points
     if tile_v != KERNEL_TILE_V:
@@ -320,7 +325,7 @@ def _tiles(models, points, plan: PUTilePlan, kernel: RBFKernel, counter) -> torc
             )
             if err != 0:
                 raise RuntimeError(f"fd_pu_tiles launch failed: CUDA error {err}")
-            counter.launches += 1
+            profiling.count(f"launches.{entry}")
     return out
 
 
@@ -331,16 +336,10 @@ def evaluate_pu_tiles_frames(models, points, plan: PUTilePlan,
     all 3F weight columns, up to FRAMES_PER_LAUNCH frames a launch.
     `models` share geometry (fit_pu_frames output); `plan` was built by
     plan_eval_tiles for these points."""
-    return _tiles(models, points, plan, kernel, evaluate_pu_tiles_frames)
-
-
-evaluate_pu_tiles_frames.launches = 0
+    return _tiles(models, points, plan, kernel, "evaluate_pu_tiles_frames")
 
 
 def evaluate_pu_tiles(model, points, plan: PUTilePlan, kernel: RBFKernel) -> torch.Tensor:
     """Scatter-free PU displacement (V, 3) in the caller's point order: the
     F = 1 case of evaluate_pu_tiles_frames (one launch on the card)."""
-    return _tiles((model,), points, plan, kernel, evaluate_pu_tiles)[0]
-
-
-evaluate_pu_tiles.launches = 0
+    return _tiles((model,), points, plan, kernel, "evaluate_pu_tiles")[0]

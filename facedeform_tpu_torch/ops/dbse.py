@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from facedeform_tpu_torch.ops.solve import SolveReport, cholesky_solve_refined
+from facedeform_tpu_torch.utils import profiling
 from facedeform_tpu_torch.utils.precision import highest_precision
 
 
@@ -106,8 +107,8 @@ def build_model(
     else:
         packed = np.zeros((1, s), np.float32)
     return DBSEModel(
-        deltas=torch.as_tensor(deltas.astype(np.float32), device=device),
-        packed_qr=torch.as_tensor(packed, device=device),
+        deltas=profiling.to_device(deltas.astype(np.float32), device),
+        packed_qr=profiling.to_device(packed, device),
     )
 
 
@@ -119,8 +120,8 @@ def _flat(model: DBSEModel) -> torch.Tensor:
 def _pose_deltas(model: DBSEModel, poses, rest) -> torch.Tensor:
     """(F, 3V) f32 pose deltas on the model's device from (F, V, 3) poses."""
     dev = model.device
-    poses = torch.as_tensor(poses, dtype=torch.float32, device=dev)
-    rest = torch.as_tensor(rest, dtype=torch.float32, device=dev)
+    poses = profiling.to_device(poses, dev, torch.float32)
+    rest = profiling.to_device(rest, dev, torch.float32)
     return (poses - rest).reshape(poses.shape[0], -1)
 
 
@@ -319,7 +320,7 @@ def reconstruct(
     carry leading axes: (S,) -> (V, 3), an animated shot's (F, S) ->
     (F, V, 3).
     """
-    w = torch.as_tensor(weights, dtype=torch.float32, device=model.device)
+    w = profiling.to_device(weights, model.device, torch.float32)
     if parity_scale:
         w = w * 3.0
     if clamp is not None:
@@ -365,8 +366,8 @@ def morph_apply(
     (F, V, 3) with (F, S) morphs a whole shot.  The parity path scales by
     3 (not cfg.dbse_lstsq) and the clamp applies when cfg.doclampweight."""
     dev = model.device
-    positions = torch.as_tensor(positions, dtype=torch.float32, device=dev)
-    rest = torch.as_tensor(rest, dtype=torch.float32, device=dev)
+    positions = profiling.to_device(positions, dev, torch.float32)
+    rest = profiling.to_device(rest, dev, torch.float32)
     clamp = (params.weight_lo, params.weight_hi) if cfg.doclampweight else None
     disp = reconstruct(model, weights, clamp, parity_scale=not cfg.dbse_lstsq)
     return morph_pass(positions, rest, disp, cfg.dofalloff, params.falloffradius)

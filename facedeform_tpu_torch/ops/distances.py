@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from facedeform_tpu_torch.ops.kernels import pairwise_sqdist
+from facedeform_tpu_torch.utils import profiling
 
 # Elements of one chunk's (vertices, primitives) temporaries: 64 MiB of
 # f32 each, so a chunk's working set stays a few hundred MiB.
@@ -108,14 +109,14 @@ def min_sqdist_to_triangles(points: torch.Tensor, tris: torch.Tensor) -> torch.T
 def min_sqdist_to_points_auto(points, targets, device="cuda") -> np.ndarray:
     """min_sqdist_to_points on `device` for host arrays; returns numpy
     (V,) f32, as capture (host-side) consumes it."""
-    p = torch.as_tensor(np.asarray(points, np.float32), device=device)
-    t = torch.as_tensor(np.asarray(targets, np.float32), device=device)
-    return min_sqdist_to_points(p, t).cpu().numpy()
+    p = profiling.to_device(np.asarray(points, np.float32), device)
+    t = profiling.to_device(np.asarray(targets, np.float32), device)
+    return profiling.to_host(min_sqdist_to_points(p, t)).numpy()
 
 
 def min_sqdist_to_triangles_auto(points, tris, device="cuda") -> np.ndarray:
     """min_sqdist_to_triangles on `device` for host arrays; returns numpy
     (V,) f32, clamped at 0 as the JAX package's host path is."""
-    p = torch.as_tensor(np.asarray(points, np.float32), device=device)
-    t = torch.as_tensor(np.asarray(tris, np.float32), device=device)
-    return torch.clamp(min_sqdist_to_triangles(p, t), min=0.0).cpu().numpy()
+    p = profiling.to_device(np.asarray(points, np.float32), device)
+    t = profiling.to_device(np.asarray(tris, np.float32), device)
+    return profiling.to_host(torch.clamp(min_sqdist_to_triangles(p, t), min=0.0)).numpy()

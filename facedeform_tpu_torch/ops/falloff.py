@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from facedeform_tpu_torch.utils import profiling
+
 
 def falloff_weight(
     dist2: torch.Tensor,
@@ -19,8 +21,8 @@ def falloff_weight(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(weight (V,) f32, 0 where skipped; active (V,) bool)."""
     dist2 = dist2.float()
-    r = torch.as_tensor(radius, dtype=torch.float32, device=dist2.device)
-    rate = torch.as_tensor(rate, dtype=torch.float32, device=dist2.device)
+    r = profiling.to_device(radius, dist2.device, torch.float32)
+    rate = profiling.to_device(rate, dist2.device, torch.float32)
     r2 = r * r
     if not strict_parity:
         dist2 = torch.clamp(dist2, min=0.0)

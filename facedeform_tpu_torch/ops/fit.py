@@ -36,7 +36,7 @@ from facedeform_tpu_torch.ops.precise_eval import GROWING_KERNELS
 from facedeform_tpu_torch.ops.solve import (
     SolveReport, _lu_against_df_impl, _lu_refined_impl, lu_factor_hp,
 )
-from facedeform_tpu_torch.utils import errors
+from facedeform_tpu_torch.utils import errors, profiling
 from facedeform_tpu_torch.utils.precision import highest_precision
 
 _FIELDS = ("ctrl", "w_rbf", "w_poly", "eps", "w_rbf_lo", "w_poly_lo")
@@ -87,7 +87,7 @@ def _worst_report(reports: list) -> SolveReport:
     if len(reports) == 1:
         return reports[0]
     errs = torch.stack([r.backward_error() for r in reports])
-    return reports[int(torch.argmax(errs))]
+    return reports[int(profiling.to_host(torch.argmax(errs)))]
 
 
 def effective_kernel(cfg: DeformConfig) -> RBFKernel:
@@ -113,7 +113,7 @@ CONFIDENCE_FLOOR = 1e-3
 def confidence_clipped(confidence, n: int, device=None) -> torch.Tensor:
     """(N,) confidence clipped to [CONFIDENCE_FLOOR, 1]; ShapeMismatchError
     on a wrong-length vector."""
-    c = torch.as_tensor(confidence, dtype=torch.float32, device=device).reshape(-1)
+    c = profiling.to_device(confidence, device, torch.float32).reshape(-1)
     if c.shape[0] != n:
         raise errors.ShapeMismatchError(
             f"confidence has {c.shape[0]} entries for {n} markers"
@@ -138,10 +138,10 @@ def _family_radii(cfg, params, rest_ctrl, confidence=None):
                 "have no effect"
             )
         eps0 = _qnn_radii(rest_ctrl, params.qcoef, params.zcoef)
-        lam0 = torch.tensor(0.0, device=dev)
+        lam0 = profiling.to_device(0.0, dev, torch.float32)
     else:
         eps0 = torch.full((n,), params.radius, dtype=torch.float32, device=dev)
-        lam0 = torch.tensor(params.lam, dtype=torch.float32, device=dev)
+        lam0 = profiling.to_device(params.lam, dev, torch.float32)
         if confidence is not None:
             lam0 = lam0 / confidence_clipped(confidence, n, dev)
     return eps0, lam0
@@ -179,9 +179,10 @@ def _assemble_layer(rest_ctrl, kernel, term, eps_l, lam0):
     """One layer's system: the split float64 pair for growing kernels (the
     f32 rounding of phi alone breaks the budget once the conditioning
     amplifies it), the f32 system and None for decaying kernels."""
-    if kernel in GROWING_KERNELS:
-        return assemble_system_df(rest_ctrl, kernel, term, eps_l, lam0)
-    return assemble_system(rest_ctrl, kernel, term, eps_l, lam0), None
+    with profiling.span("fit.assemble"):
+        if kernel in GROWING_KERNELS:
+            return assemble_system_df(rest_ctrl, kernel, term, eps_l, lam0)
+        return assemble_system(rest_ctrl, kernel, term, eps_l, lam0), None
 
 
 def _factor_layer(a_hi, a_lo) -> LayerFactors:
@@ -192,13 +193,15 @@ def _factor_layer(a_hi, a_lo) -> LayerFactors:
 def _resolve_layer(lay: LayerFactors, b: torch.Tensor, n_refine: int):
     """Refined solve of b (R, k) against a layer's factors: GMRES-IR
     against a_hi + a_lo (at least 3 sweeps) for growing kernels, float64-
-    residual refinement otherwise.  Returns ((x, x_lo), report)."""
-    if lay.a_lo is not None:
-        return _lu_against_df_impl(lay.a_hi, lay.a_lo, b, max(n_refine, 3),
-                                   lu_piv=(lay.lu, lay.piv))
-    (x, x_lo), report, _ = _lu_refined_impl(lay.a_hi, b, n_refine, want_lo=True,
-                                            lu_piv=(lay.lu, lay.piv))
-    return (x, x_lo), report
+    residual refinement otherwise.  Returns ((x, x_lo), report).  A span,
+    fit.refine."""
+    with profiling.span("fit.refine"):
+        if lay.a_lo is not None:
+            return _lu_against_df_impl(lay.a_hi, lay.a_lo, b, max(n_refine, 3),
+                                       lu_piv=(lay.lu, lay.piv))
+        (x, x_lo), report, _ = _lu_refined_impl(lay.a_hi, b, n_refine, want_lo=True,
+                                                lu_piv=(lay.lu, lay.piv))
+        return (x, x_lo), report
 
 
 def _dense_layer_solve(rest_ctrl, kernel, term, eps_l, lam0, b, n_refine):
@@ -512,10 +515,12 @@ def fit_frames_per_pose(
             report = _frames_report(packed, a, x, b, f)
             x, x_lo = _unpack(x, f), _unpack(x_lo, f)
         else:
-            a = assemble_system(rest_ctrl, kernel, term, eps_l, lam0)
+            with profiling.span("fit.assemble"):
+                a = assemble_system(rest_ctrl, kernel, term, eps_l, lam0)
             lu_piv = lu_factor_hp(a.expand(f, *a.shape))
-            (x, x_lo), report, _ = _lu_refined_impl(
-                a, b, cfg.n_refine, want_lo=True, lu_piv=lu_piv)
+            with profiling.span("fit.refine"):
+                (x, x_lo), report, _ = _lu_refined_impl(
+                    a, b, cfg.n_refine, want_lo=True, lu_piv=lu_piv)
         w_l = x[:, :n]
         w_layers.append(w_l)
         w_lo_layers.append(x_lo[:, :n])

@@ -25,6 +25,7 @@ import torch
 
 from facedeform_tpu_torch.config import PolyTerm, RBFKernel
 from facedeform_tpu_torch.ops.kernels import pairwise_sqdist, phi_prime_s
+from facedeform_tpu_torch.utils import profiling
 from facedeform_tpu_torch.utils.precision import highest_precision
 
 
@@ -176,7 +177,7 @@ def deformation_gradient(jac: torch.Tensor, weight: torch.Tensor, proj=None) -> 
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device)
+    return profiling.to_device(x, like.device, torch.float32)
 
 
 def tangent_projection(cfg, frame, like: torch.Tensor):

@@ -40,7 +40,10 @@ from facedeform_tpu_torch.config import PolyTerm, RBFKernel
 from facedeform_tpu_torch.ops.assemble import poly_basis
 from facedeform_tpu_torch.ops.kernels import apply_kernel, pairwise_sqdist
 from facedeform_tpu_torch.ops.solve import SolveReport
+from facedeform_tpu_torch.utils import profiling
 from facedeform_tpu_torch.utils.precision import highest_precision
+
+profiling.count("fit.gmres_restarts", 0)
 
 Matvec = Callable[[torch.Tensor], torch.Tensor]
 
@@ -298,7 +301,8 @@ def _rayleigh_anorm(lanczos_anorm, b, x, r_final):
 
 def _running(it: int, maxiter: int, resid, tol, bnorm) -> bool:
     """The JAX package's loop condition (one host read an iteration)."""
-    return it < maxiter and bool(torch.any(resid > tol * torch.clamp(bnorm, min=1e-30)))
+    return it < maxiter and bool(profiling.to_host(
+        torch.any(resid > tol * torch.clamp(bnorm, min=1e-30))))
 
 
 def _pminres(matvec, b, msolve, tol, maxiter, x0, alive_floor):
@@ -445,6 +449,7 @@ def gmres(
         anorm = torch.zeros((), dtype=torch.float32, device=b.device)
         it = 0
         while _running(it, max_restarts, resid, tol, bnorm):
+            profiling.count("fit.gmres_restarts")
             r = b - matvec(x)
             beta = torch.linalg.norm(r, dim=0)
             # dead-column guard: a column converged to ~1e-20 would make a
@@ -475,7 +480,8 @@ def gmres(
             g[:, 0, 0] = beta
             hth = h_t @ h_t.transpose(1, 2) + 1e-12 * torch.eye(
                 m, dtype=torch.float32, device=b.device)
-            y = torch.linalg.solve(hth, h_t @ g)[..., 0]             # (k, m)
+            with profiling.blocking(b.device):                      # its error check
+                y = torch.linalg.solve(hth, h_t @ g)[..., 0]         # (k, m)
             x = x + msolve(torch.einsum("ink,ki->nk", basis[:m], y))
             resid = torch.linalg.norm(b - matvec(x), dim=0)
             anorm = torch.maximum(anorm, torch.amax(torch.linalg.norm(hess, dim=(0, 1))))

@@ -37,6 +37,7 @@ import torch
 from facedeform_tpu_torch.config import RBFKernel
 from facedeform_tpu_torch.ops.kernels import apply_kernel, kernel_is_pd
 from facedeform_tpu_torch.ops.solve import SolveReport, lu_solve_refined
+from facedeform_tpu_torch.utils import profiling
 from facedeform_tpu_torch.utils.precision import highest_precision
 
 def pairwise_sqdist_nd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -173,12 +174,12 @@ def fit_psd(
             "fits have no polynomial tail, pass lam > 0"
         )
 
-    f_t = torch.as_tensor(feats, device=device)
-    corr_t = torch.as_tensor(corrections, dtype=torch.float32, device=device)
-    eps_t = torch.tensor(eps, dtype=torch.float32, device=device)
+    f_t = profiling.to_device(feats, device)
+    corr_t = profiling.to_device(corrections, device, torch.float32)
+    eps_t = profiling.to_device(eps, device, torch.float32)
     phi = apply_kernel(kernel, pairwise_sqdist_nd(f_t, f_t), eps_t)
     eye = torch.eye(k, dtype=torch.float32, device=device)
-    a = phi + torch.tensor(lam, dtype=torch.float32, device=device) * eye
+    a = phi + profiling.to_device(lam, device, torch.float32) * eye
     alpha, report = lu_solve_refined(a, eye)
     return PSDModel(f_t, alpha, corr_t, eps_t), report
 
@@ -199,7 +200,7 @@ def psd_weights(
     (a soft form s / (s^2 + 1e-4) cost 1e-4 there, double the 5e-5
     budget).
     """
-    feats = torch.as_tensor(feats, dtype=torch.float32, device=model.device)
+    feats = profiling.to_device(feats, model.device, torch.float32)
     squeeze = feats.ndim == 1
     q = torch.atleast_2d(feats)
     phi = apply_kernel(kernel, pairwise_sqdist_nd(q, model.features), model.eps)
@@ -299,7 +300,7 @@ class PSDDeformer:
         d = psd_delta(self.model, f, self.kernel, self.normalize)
         if r is not None:
             with highest_precision():
-                d = d @ torch.as_tensor(r.T, device=d.device)
+                d = d @ profiling.to_device(r.T, d.device)
         return d
 
     def delta_frames(self, rest_rig: np.ndarray, posed_rigs: np.ndarray) -> torch.Tensor:
@@ -313,7 +314,7 @@ class PSDDeformer:
         d = psd_delta(self.model, np.stack(feats), self.kernel, self.normalize)
         if self.align:
             # per-frame world rotation: (F, V, 3) x (F, 3, 3) -> (F, V, 3)
-            rot = torch.as_tensor(np.stack(rots), device=d.device)
+            rot = profiling.to_device(np.stack(rots), d.device)
             with highest_precision():
                 d = torch.einsum("fvc,fdc->fvd", d, rot)
         return d

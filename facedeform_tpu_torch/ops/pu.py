@@ -42,6 +42,7 @@ from facedeform_tpu_torch.ops.fit import confidence_clipped
 from facedeform_tpu_torch.ops.kernels import apply_kernel, phi_prime_s
 from facedeform_tpu_torch.ops.precise_eval import GROWING_KERNELS
 from facedeform_tpu_torch.ops.solve import SolveReport, lu_solve_refined_against_df
+from facedeform_tpu_torch.utils import profiling
 from facedeform_tpu_torch.utils.precision import highest_precision
 
 # Bytes of device memory per (P + m)^2 system entry while a chunk of
@@ -254,9 +255,10 @@ def _lru_put(cache: dict, key, val, cap: int = 8) -> None:
 
 
 def _host(a) -> np.ndarray:
-    """f32 numpy copy of an array or tensor (on any device)."""
+    """f32 numpy copy of an array or tensor (on any device; a card's copy
+    is counted, utils/profiling.to_host)."""
     if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
+        a = profiling.to_host(a).numpy()
     return np.asarray(a, np.float32)
 
 

@@ -22,7 +22,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from facedeform_tpu_torch.utils import profiling
 from facedeform_tpu_torch.utils.precision import highest_precision
+
+profiling.count("fit.lu_solves", 0)
 
 
 class SolveReport(NamedTuple):
@@ -69,10 +72,17 @@ def lu_factor_hp(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     lu_factor_ex does not raise on a zero pivot: a singular system shows
     up as a non-finite backward error in the SolveReport, which
     errors.check_solve turns into SolveFailedError (the JAX package's
-    behaviour)."""
-    with highest_precision():
+    behaviour).  A span, fit.factor."""
+    with profiling.span("fit.factor"), highest_precision():
         lu, piv, _ = torch.linalg.lu_factor_ex(a.float())
     return lu, piv
+
+
+def lu_solve(lu: torch.Tensor, piv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.linalg.lu_solve, one triangular-solve pair, counted in
+    fit.lu_solves."""
+    profiling.count("fit.lu_solves")
+    return torch.linalg.lu_solve(lu, piv, b)
 
 
 def _residual64(a64: torch.Tensor, x_hi, x_lo, b64: torch.Tensor) -> torch.Tensor:
@@ -108,11 +118,11 @@ def _lu_refined_impl(a, b, n_refine, want_lo, lu_piv=None):
     a64, b64 = a.double(), b.double()
     with highest_precision():
         lu, piv = lu_factor_hp(a) if lu_piv is None else lu_piv
-        x_hi = torch.linalg.lu_solve(lu, piv, b)
+        x_hi = lu_solve(lu, piv, b)
         x_lo = torch.zeros_like(x_hi)
         for _ in range(n_refine):
             r = _residual64(a64, x_hi, x_lo, b64)
-            dx = torch.linalg.lu_solve(lu, piv, r)
+            dx = lu_solve(lu, piv, r)
             # bits of dx lost rounding into x_hi go to x_lo
             x_hi, e = _two_sum(x_hi, dx)
             x_lo = x_lo + e
@@ -234,7 +244,7 @@ def _lu_against_df_impl(a_hi, a_lo, b, n_refine, gmres_ir=True, lu_piv=None):
     with highest_precision():
 
         def msolve(v):
-            return torch.linalg.lu_solve(lu, piv, v)
+            return lu_solve(lu, piv, v)
 
         def matvec(v):
             return a_hi @ v + a_lo @ v

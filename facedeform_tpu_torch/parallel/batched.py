@@ -31,6 +31,7 @@ from facedeform_tpu_torch.ops.fit import GROWING_KERNELS, RBFModel
 from facedeform_tpu_torch.ops.jacobian import (
     RULES, deformation_gradient, principal_stretches, tangent_projection,
 )
+from facedeform_tpu_torch.utils import profiling
 
 # Device-memory budget of the per-pose fit's temporaries.  Past it
 # fit_frames takes the shared factorization (fit_mod.fit_frames_dense),
@@ -64,9 +65,10 @@ def _mesh_not_ported(mesh) -> None:
 
 
 def _f32(x, device) -> torch.Tensor:
-    return torch.as_tensor(x, dtype=torch.float32, device=device)
+    return profiling.to_device(x, device, torch.float32)
 
 
+@profiling.traced("batched.fit_frames")
 def fit_frames(
     rest_ctrl,
     deformed_frames,
@@ -108,6 +110,7 @@ def fit_frames(
         want_report=want_report)
 
 
+@profiling.traced("batched.apply_frames")
 def apply_frames(
     batched_model: RBFModel,
     points,
@@ -138,13 +141,16 @@ def apply_frames(
     frame = None if not cfg.tangent or frame is None else tuple(
         _f32(f, dev).contiguous() for f in frame)
     params = params.clamped()
-    w, _ = falloff_weight(_f32(dist2, dev), params.radius, params.falloffrate,
-                          strict_parity=cfg.strict_parity)
-    w = (w * _f32(gate, dev)).contiguous()
+    with profiling.span("eval.falloff_weight"):
+        w, _ = falloff_weight(_f32(dist2, dev), params.radius, params.falloffrate,
+                              strict_parity=cfg.strict_parity)
+        w = (w * _f32(gate, dev)).contiguous()
     zeros = torch.zeros_like(w)
     evaluate = (cuda_precise.evaluate_cuda_precise_frames if kernel in GROWING_KERNELS
                 else cuda_eval.evaluate_cuda_frames)
-    out, _ = evaluate(batched_model, points, zeros, w, 1.0, 1.0, kernel, cfg.term, frame=frame)
+    with profiling.span("eval.frames"):
+        out, _ = evaluate(batched_model, points, zeros, w, 1.0, 1.0, kernel, cfg.term,
+                          frame=frame)
     return out, w
 
 
@@ -169,6 +175,7 @@ def deform_frames(
     return apply_frames(model, points, dist2, gate, cfg, params, frame=frame)
 
 
+@profiling.traced("batched.transport_frames")
 def transport_frames(
     batched_model: RBFModel,
     points,
@@ -211,11 +218,14 @@ def transport_frames(
     for lo in range(0, n_frames, step):
         sub = RBFModel(ctrl=batched_model.ctrl, w_rbf=batched_model.w_rbf[lo:lo + step],
                        w_poly=batched_model.w_poly[lo:lo + step], eps=batched_model.eps)
-        jacs = cuda_jacobian.jacobian_cuda_frames(sub, points, kernel, cfg.term)
-        for jac in jacs:
-            f = deformation_gradient(jac, weight, proj)
-            for out, val, k in zip(outs, values, kinds):
-                out.append(RULES[k](val, f))
-            if want_stretch:
-                outs[-1].append(principal_stretches(f))
-    return tuple(torch.stack(o) for o in outs)
+        with profiling.span("transport.jacobian"):
+            jacs = cuda_jacobian.jacobian_cuda_frames(sub, points, kernel, cfg.term)
+        with profiling.span("transport.rules"):
+            for jac in jacs:
+                f = deformation_gradient(jac, weight, proj)
+                for out, val, k in zip(outs, values, kinds):
+                    out.append(RULES[k](val, f))
+                if want_stretch:
+                    outs[-1].append(principal_stretches(f))
+    with profiling.span("transport.stack"):
+        return tuple(torch.stack(o) for o in outs)

@@ -7,6 +7,8 @@ import math
 
 import torch
 
+from facedeform_tpu_torch.utils import profiling
+
 
 class FaceDeformError(Exception):
     """Base class for all framework errors."""
@@ -45,8 +47,8 @@ def check_solve(report, rtol: float = SOLVE_BACKWARD_RTOL) -> None:
     error, so one degenerate displacement axis cannot hide inside the
     Frobenius aggregate."""
     if getattr(report, "scale_norm", None) is None:
-        res, rhs = (float(v) for v in torch.stack(
-            [report.residual_norm, report.rhs_norm]).cpu())
+        res, rhs = (float(v) for v in profiling.to_host(torch.stack(
+            [report.residual_norm, report.rhs_norm])))
         if not math.isfinite(res) or (
             rhs > 0 and res > SOLVE_RESIDUAL_RTOL * max(rhs, 1e-30)
         ):
@@ -61,7 +63,7 @@ def check_solve(report, rtol: float = SOLVE_BACKWARD_RTOL) -> None:
     parts = [report.residual_norm, report.rhs_norm, report.scale_norm]
     if report.col_backward is not None:
         parts.append(report.col_backward)
-    vals = torch.cat([p.reshape(-1).double() for p in parts]).cpu().tolist()
+    vals = profiling.to_host(torch.cat([p.reshape(-1).double() for p in parts])).tolist()
     res, rhs, scale = vals[:3]
     col_worst = max(vals[3:], default=0.0)
     backward = res / max(scale, 1e-30)
@@ -107,19 +109,19 @@ def check_frames(resid_norms, rest_ctrl, frames, cfg=None, report=None) -> None:
     other cfg keeps the dense test."""
     from facedeform_tpu_torch.ops.fit import krylov_cpd
 
-    r = torch.as_tensor(resid_norms).detach().double().cpu().reshape(-1)
-    rest = torch.as_tensor(rest_ctrl).detach().double().cpu()
+    r = profiling.to_host(torch.as_tensor(resid_norms)).double().reshape(-1)
+    rest = profiling.to_host(torch.as_tensor(rest_ctrl)).double()
     if cfg is not None and krylov_cpd(cfg, rest.shape[0]):
         if report is None:
             raise ValueError(
                 "check_frames on the Krylov route of a conditionally PD kernel "
                 "judges each frame's backward error: pass report= "
                 "(fit_frames(..., want_report=True))")
-        scale = torch.as_tensor(report.scale_norm).detach().double().cpu().reshape(-1)
+        scale = profiling.to_host(torch.as_tensor(report.scale_norm)).double().reshape(-1)
         back = r / torch.clamp(scale, min=1e-30)
         col = torch.zeros_like(r)
         if report.col_backward is not None:
-            col = torch.as_tensor(report.col_backward).detach().double().cpu()
+            col = profiling.to_host(torch.as_tensor(report.col_backward)).double()
             col = torch.amax(torch.nan_to_num(col.reshape(r.shape[0], -1), nan=math.inf), dim=1)
         rtol = KRYLOV_CPD_BACKWARD_RTOL
         bad = ~torch.isfinite(r) | ~torch.isfinite(col) | (back > rtol) | (col > rtol)
@@ -134,7 +136,7 @@ def check_frames(resid_norms, rest_ctrl, frames, cfg=None, report=None) -> None:
             )
         return
     rhs = torch.linalg.norm(
-        torch.as_tensor(frames).detach().double().cpu() - rest[None], dim=(1, 2))
+        profiling.to_host(torch.as_tensor(frames)).double() - rest[None], dim=(1, 2))
     bad = ~torch.isfinite(r) | (
         (rhs > 0) & (r > SOLVE_RESIDUAL_RTOL * torch.clamp(rhs, min=1e-30)))
     if bool(bad.any()):
@@ -162,8 +164,8 @@ def frames_solve_ok(report, rtol: float = SOLVE_BACKWARD_RTOL):
     if getattr(report, "scale_norm", None) is None:
         # check_solve's legacy branch: a zero-RHS frame passes on any
         # finite residual
-        vals = torch.cat([report.residual_norm.reshape(-1),
-                          report.rhs_norm.reshape(-1)]).float().cpu().numpy()
+        vals = profiling.to_host(torch.cat([report.residual_norm.reshape(-1),
+                                            report.rhs_norm.reshape(-1)]).float()).numpy()
         res, rhs = vals[:f], vals[f:]
         return np.isfinite(res) & ~(
             (rhs > 0) & (res > SOLVE_RESIDUAL_RTOL * np.maximum(rhs, 1e-30))
@@ -173,7 +175,7 @@ def frames_solve_ok(report, rtol: float = SOLVE_BACKWARD_RTOL):
     parts = [report.residual_norm.reshape(-1), report.scale_norm.reshape(-1)]
     if k:
         parts.append(col.reshape(-1))
-    vals = torch.cat([p.float() for p in parts]).cpu().numpy()
+    vals = profiling.to_host(torch.cat([p.float() for p in parts])).numpy()
     res, scale = vals[:f], vals[f:2 * f]
     backward = res / np.maximum(scale, 1e-30)
     ok = np.isfinite(res) & (backward <= rtol)

@@ -13,6 +13,7 @@ from facedeform_tpu_torch import DeformConfig, convert
 from facedeform_tpu_torch.deformer import Deformer
 from facedeform_tpu_torch.ops import cuda_eval
 from facedeform_tpu_torch.utils import errors
+from facedeform_tpu_torch.utils import profiling
 
 import oracle
 
@@ -82,7 +83,8 @@ def test_fit_apply_matches_jax_and_oracle(name, cfg_kw, inputs):
         got, got_w = td.apply(pts, backend=backend, **kw)
         np.testing.assert_allclose(got.numpy(), tpts, atol=1e-6)
         np.testing.assert_array_equal(got_w.numpy(), tw)
-    assert cuda_eval.evaluate_cuda.launches == cuda_eval.evaluate_cuda_culled.launches == 0
+    assert (profiling.counter("launches.evaluate_cuda")
+            == profiling.counter("launches.evaluate_cuda_culled") == 0)
 
 
 def test_displacement_matches_jax():

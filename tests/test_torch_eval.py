@@ -18,6 +18,7 @@ from facedeform_tpu_torch import convert
 from facedeform_tpu_torch.ops import cuda_eval
 from facedeform_tpu_torch.ops.evaluate import _center_phi, evaluate
 from facedeform_tpu_torch.ops.kernels import apply_kernel
+from facedeform_tpu_torch.utils import profiling
 from facedeform_tpu.ops.morton import spatial_order
 
 K = jcfg.RBFKernel
@@ -178,13 +179,14 @@ def test_wrappers_on_cpu_run_the_plain_version():
     pts, dist2, gate, _ = _inputs()
     args = (m, torch.as_tensor(pts), torch.as_tensor(dist2), torch.as_tensor(gate),
             RADIUS, RATE, K.GAUSSIAN, TERM)
-    before = (cuda_eval.evaluate_cuda.launches, cuda_eval.evaluate_cuda_culled.launches)
+    before = (profiling.counter("launches.evaluate_cuda"),
+              profiling.counter("launches.evaluate_cuda_culled"))
     ref = cuda_eval.evaluate_reference(*args)
     for fn in (cuda_eval.evaluate_cuda, cuda_eval.evaluate_cuda_culled):
         out = fn(*args)
         assert all(torch.equal(a, b) for a, b in zip(out, ref))
-    assert (cuda_eval.evaluate_cuda.launches,
-            cuda_eval.evaluate_cuda_culled.launches) == before == (0, 0)
+    assert (profiling.counter("launches.evaluate_cuda"),
+            profiling.counter("launches.evaluate_cuda_culled")) == before == (0, 0)
     assert cuda_eval._lib is None
 
 

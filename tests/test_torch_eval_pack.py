@@ -30,6 +30,7 @@ from facedeform_tpu_torch.ops.evaluate import _center_phi
 from facedeform_tpu_torch.ops.fit import GROWING_KERNELS, RBFModel
 from facedeform_tpu_torch.ops.kernels import apply_kernel
 from facedeform_tpu_torch.ops.morton import spatial_order
+from facedeform_tpu_torch.utils import profiling
 
 K = RBFKernel
 CSRC = Path(cuda_eval.__file__).resolve().parent.parent / "csrc"
@@ -83,9 +84,9 @@ def test_control_records_layout(n_layers, tail_rows):
     m = _model(300, n_layers, K.GAUSSIAN)
     m = RBFModel(ctrl=m.ctrl, w_rbf=m.w_rbf, eps=m.eps, w_poly=m.w_poly[:tail_rows].contiguous())
     ie = cuda_eval._inv_eps2(m.eps)
-    before = cuda_eval.control_records.launches
+    before = profiling.counter("launches.control_records")
     rec, wp = cuda_eval.control_records(m)
-    assert cuda_eval.control_records.launches == before == 0   # the CPU runs the twin
+    assert profiling.counter("launches.control_records") == before == 0   # the CPU runs the twin
     assert rec.shape == (300, 1 + n_layers, 4) and rec.dtype == torch.float32
     assert rec.is_contiguous()
     ctrl, got_ie, got_w = _read_records(rec)
@@ -102,7 +103,7 @@ def test_culled_tables_padded(kernel, n_layers):
     m = _model(300, n_layers, kernel)        # 300 = 2 slabs + 44: padded
     ctrl, w_rbf, inv_eps2, bbox = cuda_eval.culled_slabs(m, kernel)
     rec, bbox2, sub, wp = cuda_eval.culled_tables(m, kernel)
-    assert cuda_eval.culled_tables.launches == 0
+    assert profiling.counter("launches.culled_tables") == 0
     assert torch.equal(wp, cuda_eval._w_poly4(m))
     assert rec.shape == (384, 1 + n_layers, 4)
     assert torch.equal(bbox2, bbox) and sub.shape == (12, 8)

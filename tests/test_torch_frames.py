@@ -25,6 +25,7 @@ from facedeform_tpu_torch.ops import evaluate as teval
 from facedeform_tpu_torch.ops import fit as tfit
 from facedeform_tpu_torch.parallel import batched as tbatched
 from facedeform_tpu_torch.utils import errors
+from facedeform_tpu_torch.utils import profiling
 
 import oracle
 
@@ -304,7 +305,7 @@ def test_frames_wrapper_on_cpu_runs_the_plain_version():
     got = cuda_eval.evaluate_cuda_frames(*args)
     want = cuda_eval.evaluate_frames_reference(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert cuda_eval.evaluate_cuda_frames.launches == 0 and cuda_eval._lib is None
+    assert profiling.counter("launches.evaluate_cuda_frames") == 0 and cuda_eval._lib is None
     with pytest.raises(ValueError, match="CPU or CUDA"):
         cuda_eval.evaluate_cuda_frames(model, pts.to("meta"), *args[2:])
 

@@ -25,6 +25,7 @@ from facedeform_tpu_torch.ops.falloff import falloff_weight
 from facedeform_tpu_torch.ops.kernels import apply_kernel
 from facedeform_tpu_torch.ops.tangent import project_to_tangents
 from facedeform_tpu_torch.parallel import batched
+from facedeform_tpu_torch.utils import profiling
 
 K = jcfg.RBFKernel
 M = jcfg.RBFModelType
@@ -142,7 +143,7 @@ def test_frames_stream_on_cpu_is_the_twin():
     got = cuda_eval.frames_stream(model, 1, 3, cuda_eval.frames_launch_tiles(3))
     want = cuda_eval.frames_stream_reference(model, 1, 3, cuda_eval.frames_launch_tiles(3))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert cuda_eval.frames_stream.launches == 0 and cuda_eval._lib is None
+    assert profiling.counter("launches.frames_stream") == 0 and cuda_eval._lib is None
 
 
 # ------------------------------------------- the emulation vs the twins

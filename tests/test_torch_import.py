@@ -17,6 +17,7 @@ def test_import_loads_no_jax_and_builds_nothing(tmp_path):
         "import facedeform_tpu_torch.ops.jacobian, facedeform_tpu_torch.ops.temporal\n"
         "import facedeform_tpu_torch.parallel.batched\n"
         "import facedeform_tpu_torch.ops.cuda_precise as cp\n"
+        "from facedeform_tpu_torch.utils.profiling import counter\n"
         "import facedeform_tpu_torch.ops.krylov, facedeform_tpu_torch.ops.precise_eval\n"
         "import facedeform_tpu_torch.ops.pu, facedeform_tpu_torch.ops.cuda_pu as cpu_\n"
         "import facedeform_tpu_torch.models\n"
@@ -33,12 +34,12 @@ def test_import_loads_no_jax_and_builds_nothing(tmp_path):
         "jax = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'optax', 'orbax', 'facedeform_tpu')]\n"
         "assert not jax, jax\n"
+        "from facedeform_tpu_torch.utils.profiling import counter\n"
         "assert ce._lib is None\n"
-        "assert (ce.evaluate_cuda.launches, ce.evaluate_cuda_culled.launches) == (0, 0)\n"
-        "assert ce.evaluate_cuda_frames.launches == 0\n"
-        "assert (cp.evaluate_cuda_precise.launches, ce.evaluate_cuda_diff.launches) == (0, 0)\n"
-        "assert (cj.jacobian_cuda.launches, cj.jacobian_cuda_frames.launches) == (0, 0)\n"
-        "assert (cpu_.evaluate_pu_tiles.launches, cpu_.evaluate_pu_tiles_frames.launches) == (0, 0)\n"
+        "for k in ('evaluate_cuda', 'evaluate_cuda_culled', 'evaluate_cuda_frames',\n"
+        "          'evaluate_cuda_precise', 'evaluate_cuda_diff', 'jacobian_cuda',\n"
+        "          'jacobian_cuda_frames', 'evaluate_pu_tiles', 'evaluate_pu_tiles_frames'):\n"
+        "    assert counter('launches.' + k) == 0, k\n"
     )
     build = REPO / "facedeform_tpu_torch" / "csrc" / "build"
     before = sorted(build.glob("*")) if build.exists() else []
@@ -70,7 +71,9 @@ def test_every_port_module_and_chip_smoke_load_no_jax(tmp_path):
         "       'houdini'}\n"
         "assert new <= {n.split('.', 1)[1] for n in names}, names\n"
         "import facedeform_tpu_torch.ops.cuda_precise as cp\n"
-        "assert cp.evaluate_cuda_precise_frames.launches == 0 and cp.device_log.launches == 0\n"
+        "from facedeform_tpu_torch.utils.profiling import counter\n"
+        "assert counter('launches.evaluate_cuda_precise_frames') == 0\n"
+        "assert counter('launches.device_log') == 0\n"
     )
     subprocess.run(
         [sys.executable, "-c", code], check=True, cwd=tmp_path,

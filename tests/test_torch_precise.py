@@ -30,6 +30,7 @@ from facedeform_tpu_torch.ops import fit as tfit
 from facedeform_tpu_torch.ops import precise_eval as tprecise
 from facedeform_tpu_torch.parallel import batched as tbatched
 from facedeform_tpu_torch.utils import errors
+from facedeform_tpu_torch.utils import profiling
 
 import oracle
 
@@ -323,12 +324,12 @@ def test_precise_reference_matches_pallas(kernel, strict):
         jnp.float32(1.0), jnp.float32(1.5), kernel, TERM, strict_parity=strict,
         tile_v=128, interpret=True, frame=tuple(map(jnp.asarray, frame)))
     model = _to_port(jd.model)
-    before = cuda_precise.evaluate_cuda_precise.launches
+    before = profiling.counter("launches.evaluate_cuda_precise")
     got, got_w = cuda_precise.evaluate_cuda_precise(
         model, torch.as_tensor(pts), torch.as_tensor(dist2),
         torch.as_tensor(gate), 1.0, 1.5, kernel, TERM, strict_parity=strict,
         frame=tuple(map(torch.as_tensor, frame)))
-    assert cuda_precise.evaluate_cuda_precise.launches == before
+    assert profiling.counter("launches.evaluate_cuda_precise") == before
     got, got_w = got.numpy(), got_w.numpy()
     ref, ref_w = _precise64(model, pts, dist2, gate, kernel, strict, frame)
     np.testing.assert_allclose(got, ref, atol=EVAL_TOL)
@@ -349,7 +350,7 @@ def test_precise_wrapper_on_cpu_runs_the_plain_version():
     got = cuda_precise.evaluate_cuda_precise(*args)
     want = cuda_precise.evaluate_precise_reference(*args)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert cuda_precise.evaluate_cuda_precise.launches == 0 and cuda_eval._lib is None
+    assert profiling.counter("launches.evaluate_cuda_precise") == 0 and cuda_eval._lib is None
     with pytest.raises(ValueError, match="CPU or CUDA"):
         cuda_precise.evaluate_cuda_precise(model, args[1].to("meta"), *args[2:])
 

@@ -29,6 +29,7 @@ from facedeform_tpu_torch.ops import precise_eval as tprecise
 from facedeform_tpu_torch.ops.assemble import poly_basis
 from facedeform_tpu_torch.ops.kernels import apply_kernel, pairwise_sqdist
 from facedeform_tpu_torch.parallel import batched as tbatched
+from facedeform_tpu_torch.utils import profiling
 
 import oracle
 
@@ -130,11 +131,11 @@ def test_frames_twin_matches_jax_and_float64(kernel, n_frames, n_layers, with_lo
     model = convert.model_from_numpy(arrays, device="cpu")
     assert (model.w_rbf_lo is not None) == with_lo
     tc, tp = _port(jc)
-    before = (cuda_precise.evaluate_cuda_precise_frames.launches,
-              cuda_precise.evaluate_cuda_precise.launches)
+    before = (profiling.counter("launches.evaluate_cuda_precise_frames"),
+              profiling.counter("launches.evaluate_cuda_precise"))
     got, got_w = tbatched.apply_frames(model, pts, dist2, gate, tc, tp, frame=frame)
-    assert (cuda_precise.evaluate_cuda_precise_frames.launches,
-            cuda_precise.evaluate_cuda_precise.launches) == before
+    assert (profiling.counter("launches.evaluate_cuda_precise_frames"),
+            profiling.counter("launches.evaluate_cuda_precise")) == before
     assert tuple(got.shape) == (n_frames, 160, 3)
     scale_pos = max(1.0, float(np.abs(np.asarray(want)).max()))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
@@ -169,7 +170,8 @@ def test_frames_wrapper_on_cpu_runs_the_plain_version():
     got = cuda_precise.evaluate_cuda_precise_frames(*args, **kw)
     want = cuda_precise.evaluate_precise_frames_reference(*args, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert cuda_precise.evaluate_cuda_precise_frames.launches == 0 and cuda_eval._lib is None
+    assert profiling.counter("launches.evaluate_cuda_precise_frames") == 0
+    assert cuda_eval._lib is None
     with pytest.raises(ValueError, match="CPU or CUDA"):
         cuda_precise.evaluate_cuda_precise_frames(model, args[1].to("meta"), *args[2:])
     one = cuda_eval.frame_model(model, 2)
@@ -191,8 +193,8 @@ def test_apply_frames_on_cpu_launches_nothing():
     tc, tp = _port(jcfg.DeformConfig(model=jcfg.RBFModelType.KERNEL, kernel=K.THIN_PLATE,
                                       solver="direct"))
     out, w = tbatched.deform_frames(rest, frames, pts, dist2, gate, tc, tp, device="cpu")
-    assert cuda_precise.evaluate_cuda_precise_frames.launches == 0
-    assert cuda_precise.evaluate_cuda_precise.launches == 0
+    assert profiling.counter("launches.evaluate_cuda_precise_frames") == 0
+    assert profiling.counter("launches.evaluate_cuda_precise") == 0
     model, _ = tbatched.fit_frames(rest, frames, tc, tp, device="cpu")
     for f in range(2):
         single, _ = cuda_precise.evaluate_precise_reference(
@@ -271,4 +273,4 @@ def test_log_table_and_constants_match_the_kernel():
     s = torch.tensor([1e-300, 0.5, 1.0, 3.0, 1e8], dtype=torch.float64)
     np.testing.assert_array_equal(cuda_precise.device_log(s).numpy(),
                                   cuda_precise.device_log_model(s.numpy()))
-    assert cuda_precise.device_log.launches == 0
+    assert profiling.counter("launches.device_log") == 0

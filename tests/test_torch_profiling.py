@@ -65,12 +65,21 @@ def test_sync_ignores_host_values():
 
 
 def test_trace_writes_chrome_trace_with_stage_ranges(tmp_path):
+    """The stage's range, and the counters that moved inside its span as
+    Chrome counter events, in trace.json; the span in spans.json."""
     logdir = str(tmp_path / "trace")
     with tprof.trace(logdir) as prof:
         with tprof.stage("the_stage"):
             torch.ones(64).sum()
+            tprof.count("test.trace_counter", 3)
     path = os.path.join(logdir, "trace.json")
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "the_stage" for e in events)
     assert any(k.key == "the_stage" for k in prof.key_averages())
+    counted = [e for e in events if e.get("ph") == "C" and e["name"] == "test.trace_counter"]
+    assert [e["args"]["value"] for e in counted] == [0, 3]
+    with open(os.path.join(logdir, "spans.json")) as f:
+        exported = json.load(f)
+    assert [s["name"] for s in exported["spans"]] == ["the_stage"]
+    assert exported["counters"] == {"test.trace_counter": 3}

@@ -20,6 +20,7 @@ from facedeform_tpu.ops import solve as jsolve
 from facedeform_tpu_torch import DeformConfig, Deformer, convert
 from facedeform_tpu_torch.config import DeformParams
 from facedeform_tpu_torch.ops import cuda_pu, pu, solve
+from facedeform_tpu_torch.utils import profiling
 
 K = jcfg.RBFKernel
 T = jcfg.PolyTerm
@@ -366,7 +367,8 @@ def test_tiles_twin_matches_pallas_interpret(kernel, term):
     pplan = cuda_pu.plan_eval_tiles(pu.PUPatches(*patches), q)
     pargs = (torch.as_tensor(q), pplan, kernel)
     model = _port_model(jm)
-    launches = (cuda_pu.evaluate_pu_tiles.launches, cuda_pu.evaluate_pu_tiles_frames.launches)
+    launches = (profiling.counter("launches.evaluate_pu_tiles"),
+                profiling.counter("launches.evaluate_pu_tiles_frames"))
     got = cuda_pu.evaluate_pu_tiles(model, *pargs).numpy()
     assert np.abs(got - want).max() <= 1e-5
     near = slice(0, 300)
@@ -386,8 +388,8 @@ def test_tiles_twin_matches_pallas_interpret(kernel, term):
     assert got_f.shape == (3, len(q), 3)
     assert np.abs(got_f - want_f).max() <= 2e-5
     np.testing.assert_array_equal(got_f[0], got)       # frames share phi and weights
-    assert (cuda_pu.evaluate_pu_tiles.launches,
-            cuda_pu.evaluate_pu_tiles_frames.launches) == launches  # CPU: the twin
+    assert (profiling.counter("launches.evaluate_pu_tiles"),
+            profiling.counter("launches.evaluate_pu_tiles_frames")) == launches  # CPU: the twin
 
 
 def test_jacobian_pu_matches_jax_and_differences():

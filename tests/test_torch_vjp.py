@@ -15,6 +15,7 @@ from facedeform_tpu.ops import pallas_eval
 from facedeform_tpu_torch import convert
 from facedeform_tpu_torch.ops import cuda_eval
 from facedeform_tpu_torch.ops.fit import RBFModel, effective_kernel
+from facedeform_tpu_torch.utils import profiling
 
 K = jcfg.RBFKernel
 M = jcfg.RBFModelType
@@ -75,7 +76,7 @@ def test_diff_grads_match_jax(name, cfg, params, monkeypatch):
     got = torch.autograd.grad(torch.sum(out ** 2), (w, p))
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_TOL, atol=GRAD_TOL)
-    assert cuda_eval.evaluate_cuda_diff.launches == 0
+    assert profiling.counter("launches.evaluate_cuda_diff") == 0
 
 
 @pytest.mark.parametrize("name,cfg,params", CASES, ids=[c[0] for c in CASES])
@@ -142,4 +143,4 @@ def test_diff_forward_and_plain_grads(name, cfg, params):
     g_plain = grads(lambda m, p, d2, g, r, rate, f: cuda_eval.evaluate_reference(
         m, p, d2, g, r, rate, kernel, cfg.term, True, f))
     assert all(torch.equal(a, b) for a, b in zip(g_diff, g_plain))
-    assert cuda_eval.evaluate_cuda_diff.launches == 0 and cuda_eval._lib is None
+    assert profiling.counter("launches.evaluate_cuda_diff") == 0 and cuda_eval._lib is None
