@@ -222,6 +222,7 @@ import time
 import numpy as np
 import torch
 
+from facedeform_tpu_torch.ops import cuda_solve
 from facedeform_tpu_torch.utils import profiling
 
 # Tolerances of kernel vs plain version on the card (same inputs, f32):
@@ -3060,7 +3061,8 @@ def main_path_large_rigs(dev, label: str) -> dict:
     }
     counters = (cuda_eval.evaluate_cuda, cuda_eval.evaluate_cuda_culled,
                 cuda_eval.control_records, cuda_eval.culled_tables,
-                cuda_precise.evaluate_cuda_precise, cuda_precise.evaluate_cuda_precise_frames)
+                cuda_precise.evaluate_cuda_precise, cuda_precise.evaluate_cuda_precise_frames,
+                cuda_solve.lu_solve_cuda)
     since = profiling.counters()
     t0 = time.perf_counter()
     results = {name: _large_rig(dev, name, cfg, params, n, rng, pts, idx, label)
@@ -3189,7 +3191,8 @@ def main_path_drag(dev, label: str) -> dict:
 
     counters = (cuda_eval.evaluate_cuda, cuda_eval.evaluate_cuda_culled,
                 cuda_eval.control_records, cuda_eval.culled_tables,
-                cuda_precise.evaluate_cuda_precise)
+                cuda_precise.evaluate_cuda_precise,
+                cuda_solve.lu_solve_cuda)
     out = {}
     for name, cfg, params, n, n_drags in (
             ("default", DeformConfig(), DeformParams(), DRAG_N, DRAGS),
@@ -3219,6 +3222,9 @@ def main_path_drag(dev, label: str) -> dict:
               f"{a[1]:.4f} median (CUDA events); refit == fit bit for bit: {all(equal)}; "
               f"launches {launches}  [{label}]", flush=True)
         _check(all(equal), f"{name}: a refit model differs from Deformer.fit of its pose")
+        solves = profiling.counter("fit.lu_solves") - since["fit.lu_solves"]
+        _check(launches["lu_solve_cuda"] == solves > 0,
+               f"{name}: {solves} LU solves, {launches['lu_solve_cuda']} kernel launches")
         if cfg.kernel == RBFKernel.THIN_PLATE:
             _check(launches["evaluate_cuda_precise"] == n_drags,
                    "each TPS drag's apply must launch the precise kernel once")
@@ -3398,7 +3404,8 @@ def main_path_capture(dev, label: str, n_side: int = 1000, decimate_n: int = DEC
     print(f"capture chain: native fastgeo loaded ({native.library_path()})", flush=True)
     counters = (cuda_eval.evaluate_cuda, cuda_eval.evaluate_cuda_culled,
                 cuda_eval.control_records, cuda_eval.culled_tables,
-                cuda_eval.evaluate_cuda_frames, cuda_eval.frames_stream)
+                cuda_eval.evaluate_cuda_frames, cuda_eval.frames_stream,
+                cuda_solve.lu_solve_cuda)
     since = profiling.counters()
     t_phase = time.perf_counter()
     rng = np.random.default_rng(8)
@@ -3851,7 +3858,8 @@ def main_path_node(dev, label: str, n_side: int = 1000, pu_n: int = NODE_PU_N,
                 cuda_eval.control_records, cuda_eval.culled_tables,
                 cuda_precise.evaluate_cuda_precise, cuda_jacobian.jacobian_cuda,
                 cuda_jacobian.jacobian_cuda_frames, cuda_pu.evaluate_pu_tiles,
-                cuda_pu.evaluate_pu_tiles_frames)
+                cuda_pu.evaluate_pu_tiles_frames,
+                cuda_solve.lu_solve_cuda)
     t_phase = time.perf_counter()
     rng = np.random.default_rng(9)
     sphere = uv_sphere(n_side, n_side)
@@ -4128,7 +4136,8 @@ def main_path_export(dev, label: str, shared: dict = None, n_side: int = 1000,
                 cuda_eval.evaluate_cuda_diff, cuda_precise.evaluate_cuda_precise,
                 cuda_precise.evaluate_cuda_precise_frames, cuda_jacobian.jacobian_cuda,
                 cuda_jacobian.jacobian_cuda_frames, cuda_pu.evaluate_pu_tiles,
-                cuda_pu.evaluate_pu_tiles_frames)
+                cuda_pu.evaluate_pu_tiles_frames,
+                cuda_solve.lu_solve_cuda)
     on_card = dev.type == "cuda"
     t_phase = time.perf_counter()
     rng = np.random.default_rng(10)
@@ -4564,6 +4573,147 @@ def time_skin_bases(dev, label: str, n_side: int = 1000) -> dict:
     return {"alternation": alt, "walls": walls}
 
 
+# The LU solve kernel (csrc/lu_solve.cu) held by its componentwise
+# backward error as a solution of L U x = P^T b, taken in float64, to
+# LU_VS_TWIN times the nearer of the plain twin's and torch.linalg.lu_solve's
+# plus LU_FLOOR (~17 f32 ulps).  The sides sum in other orders and the kernel
+# applies the diagonal blocks' inverses where the others substitute; on the
+# TPS rig's ill-conditioned factor that moves the forward error by several
+# times between any two of them (printed), while each stays backward stable.
+LU_CHECK_NS = (1, 31, 64, 65, 127, 128, 129, 1004, 4100)
+LU_VS_TWIN, LU_FLOOR = 4.0, 1e-6
+
+
+def _lu_errs(lu, perm, b, x) -> tuple[float, float]:
+    """(componentwise backward error max_i |L U x - P^T b|_i / (|L| |U| |x| +
+    |P^T b|)_i, forward error max |x - x64| / max |x64|), in float64."""
+    lu64 = lu.double()
+    low = torch.tril(lu64, -1) + torch.eye(lu.shape[0], dtype=torch.float64, device=lu.device)
+    up = torch.triu(lu64)
+    pb, x_ = b.double()[perm], x.double()
+    r = low @ (up @ x_) - pb
+    den = torch.abs(low) @ (torch.abs(up) @ torch.abs(x_)) + torch.abs(pb)
+    x64 = torch.linalg.solve_triangular(up, torch.linalg.solve_triangular(
+        low, pb, upper=False, unitriangular=True), upper=True)
+    return (float(torch.max(torch.abs(r) / torch.clamp(den, min=1e-300))),
+            float(torch.max(torch.abs(x_ - x64)) / torch.max(torch.abs(x64))))
+
+
+def _lu_rigs(dev) -> dict:
+    """The dense route's factors of the benchmark's two rig sizes: the
+    4096-marker TPS saddle system (n = 4100, radius 1, lam 0.01) and the
+    default QNN gaussian at 1000 markers (n = 1004), by fit.prepare: each
+    layer's solve.LUFactors."""
+    from facedeform_tpu_torch import DeformConfig, DeformParams
+    from facedeform_tpu_torch.config import RBFKernel, RBFModelType
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points
+    from facedeform_tpu_torch.ops import fit
+
+    tps = (DeformConfig(model=RBFModelType.KERNEL, kernel=RBFKernel.THIN_PLATE),
+           DeformParams(radius=1.0, lam=0.01), TPS_PLAN_N)
+    gauss = (DeformConfig(), DeformParams(), DRAG_N)
+    return {name: fit.prepare(torch.as_tensor(fibonacci_points(n), device=dev), cfg, params)
+            .layers[0].factors for name, (cfg, params, n) in (("TPS", tps), ("gaussian", gauss))}
+
+
+def check_lu_solve_kernel(dev) -> dict:
+    """The LU solve kernel at k = 1 .. K_MAX, by its backward error beside
+    its twin's and torch.linalg.lu_solve's: Gaussian factors (partial
+    pivoting swaps most rows) at LU_CHECK_NS, contiguous
+    and strided right-hand sides, and the benchmark rigs' factors; every
+    launch twice, bit-equal.  Returns the rigs' factors."""
+    from facedeform_tpu_torch.ops import solve
+
+    rng = np.random.default_rng(15)
+    cases = []
+    for n in LU_CHECK_NS:
+        a = torch.as_tensor(rng.standard_normal((n, n)), dtype=torch.float32, device=dev)
+        f = solve.lu_factor_hp(a)
+        cases.append((f"gaussian-matrix {n}", *f))
+    rigs = _lu_rigs(dev)
+    cases += [(f"{name} rig {f.lu.shape[0]}", *f) for name, f in rigs.items()]
+    worst, count = 0.0, 0
+    for name, lu, piv, perm, dinv in cases:
+        n = lu.shape[0]
+        for k in range(1, cuda_solve.K_MAX + 1):
+            b = torch.as_tensor(rng.standard_normal((n, 2 * k)), dtype=torch.float32, device=dev)
+            for rhs in (b[:, :k].contiguous(), b[:, ::2]):
+                x = cuda_solve.lu_solve_cuda(lu, perm, dinv, rhs)
+                again = cuda_solve.lu_solve_cuda(lu, perm, dinv, rhs)
+                torch.cuda.synchronize()
+                _check(torch.equal(x, again), f"lu_solve {name} k={k}: two launches differ")
+                e = _lu_errs(lu, perm, rhs, x)
+                e_twin = _lu_errs(lu, perm, rhs, cuda_solve.lu_solve_reference(lu, perm, rhs))
+                e_lib = _lu_errs(lu, perm, rhs, torch.linalg.lu_solve(lu, piv, rhs))
+                lim = LU_VS_TWIN * min(e_twin[0], e_lib[0]) + LU_FLOOR
+                _check(e[0] <= lim, f"lu_solve {name} k={k}: backward error {e[0]:.3e} "
+                       f"(twin {e_twin[0]:.3e}, library {e_lib[0]:.3e})")
+                worst = max(worst, e[0] / lim)
+                count += 1
+        if n >= 1004:
+            print(f"lu_solve {name} k=K_MAX: backward error {e[0]:.3e}, twin {e_twin[0]:.3e}, "
+                  f"library {e_lib[0]:.3e}; forward error {e[1]:.3e}, twin {e_twin[1]:.3e}, "
+                  f"library {e_lib[1]:.3e}", flush=True)
+    print(f"lu_solve kernel: {count} cases (k 1..{cuda_solve.K_MAX}), "
+          f"backward errors within {LU_VS_TWIN:g}x the nearer of twin and library + "
+          f"{LU_FLOOR:g}, two launches bit-equal; worst at {worst:.3f} of its limit",
+          flush=True)
+    return rigs
+
+
+def time_lu_solve(dev, label: str, rigs: dict = None) -> list:
+    """The LU solve kernel at the drag's shapes (k = 3 against the TPS
+    rig's n = 4100 and the gaussian rig's n = 1004 factors), beside the
+    plain twin and torch.linalg.lu_solve (library_ms):
+    CUDA-event ms a call, the kernel's device time alone (profiler), and
+    its bound, the factor read once at 3.35 TB/s; then one TPS plan refit
+    profiled (the device ops of the drag's GMRES-IR)."""
+    from facedeform_tpu_torch import Deformer
+    from facedeform_tpu_torch.benchmark import stats, time_cuda
+
+    rigs = rigs or _lu_rigs(dev)
+    rng = np.random.default_rng(16)
+    rows = []
+    for name, f in rigs.items():
+        n = f.lu.shape[0]
+        b = torch.as_tensor(rng.standard_normal((n, 3)), dtype=torch.float32, device=dev)
+        fns = {"kernel": lambda: cuda_solve.lu_solve_cuda(f.lu, f.perm, f.dinv, b),
+               "plain": lambda: cuda_solve.lu_solve_reference(f.lu, f.perm, b),
+               "library": lambda: torch.linalg.lu_solve(f.lu, f.piv, b)}
+        times = {k: stats(t) for k, t in time_cuda(fns, rounds=7, iters=20).items()}
+        alone = _kernel_alone_ms(fns["kernel"], "lu_solve_kernel")
+        # the factor read once, b and x, perm; 2 n^2 k operations
+        bound = _bound(4.0 * n * n + 4 * 3 * 2 * n + 8 * n, (2.0 * n * n * 3, PEAK_F32))
+        for k, t in times.items():
+            print(_fmt(f"lu_solve {k} {name} n={n} k=3", t, f"  [{label}]"))
+        print(f"time lu_solve kernel alone (profiler, 20 calls) {name} n={n}: {alone:.4f} ms; "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']})  [{label}]", flush=True)
+        rows.append({"name": f"lu_solve n={n}", "route": "cuda",
+                     "source": "facedeform_tpu_torch/csrc/lu_solve.cu", "replaces": None,
+                     "ms": times["kernel"][0], "kernel_alone_ms": alone,
+                     "plain_ms": times["plain"][0], **bound,
+                     "library_ms": times["library"][0]})
+    # one TPS drag refit, profiled: what its device time is made of now
+    from facedeform_tpu_torch import DeformConfig, DeformParams
+    from facedeform_tpu_torch.config import RBFKernel, RBFModelType
+    from facedeform_tpu_torch.geometry.primitives import fibonacci_points
+
+    cfg = DeformConfig(model=RBFModelType.KERNEL, kernel=RBFKernel.THIN_PLATE)
+    params = DeformParams(radius=1.0, lam=0.01)
+    rest = fibonacci_points(TPS_PLAN_N)
+    pose = rest.copy()
+    pose[:10] += 0.01 * rng.standard_normal((10, 3)).astype(np.float32)
+    _, plan = Deformer.fit_with_plan(rest, pose, cfg, params, device=dev)
+    pose[10:20] += 0.01 * rng.standard_normal((10, 3)).astype(np.float32)
+    before = profiling.counters()
+    _profile(lambda: plan.refit(pose), f"TPS refit {TPS_PLAN_N} [{label}]")
+    solves = profiling.counter("fit.lu_solves") - before["fit.lu_solves"]
+    launches = profiling.counter("launches.lu_solve_cuda") - before["launches.lu_solve_cuda"]
+    print(f"TPS refit: {solves} fit.lu_solves, {launches} lu_solve_cuda launches over the "
+          f"warm-up and the profiled call", flush=True)
+    return rows
+
+
 def _ptxas_summary(log: str) -> list:
     """One line per compiled kernel: name<template args>, registers, spills."""
     lines, name = [], None
@@ -4640,6 +4790,11 @@ def main() -> int:
         # fit_skinning with its bases kept against recomputed, alone
         time_skin_bases(dev, label)
         return 0
+    if "--lu-solve" in sys.argv[1:]:
+        # the LU solve kernel's checks and timing alone
+        rows = time_lu_solve(dev, label, check_lu_solve_kernel(dev))
+        print(json.dumps({"kernels": rows}))
+        return 0
 
     check_kernels(dev)
     check_pack_kernels(dev)
@@ -4650,6 +4805,7 @@ def main() -> int:
     check_device_log(dev)
     check_diff_kernel(dev)
     check_pu_kernel(dev)
+    lu_rigs = check_lu_solve_kernel(dev)
     main = main_path(dev, label)
     main_b = main_path_frames(dev, label)
     main_c = main_path_precise(dev, label)
@@ -4665,7 +4821,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     export = main_path_export(dev, label, shared=node["shared"])
     kernels = (time_kernels(main, label) + time_frames(main_b, label)
-               + time_precise(main_c, label) + time_pu(main_f, shot_f, label))
+               + time_precise(main_c, label) + time_pu(main_f, shot_f, label)
+               + time_lu_solve(dev, label, lu_rigs))
     # the kernels the large-rig, drag and capture-chain paths launched, by
     # path (each path's counters set to 0 just before it and read just after)
     paths = {"large rigs": large["launches"],
@@ -4682,7 +4839,7 @@ def main() -> int:
                   "pu_tiles": "evaluate_pu_tiles",
                   "pu_tiles_frames": "evaluate_pu_tiles_frames"}
     for k in kernels:
-        counter = counter_of.get(k["name"])
+        counter = "lu_solve_cuda" if k["name"].startswith("lu_solve") else counter_of.get(k["name"])
         if counter:
             k["launches_by_path"] = {p: c[counter] for p, c in paths.items() if c.get(counter)}
     record = benchmark.run_headline()

@@ -25,8 +25,8 @@ and pre-split weight fragments built on the card by one launch
 (frames_stream; plain twin frames_stream_reference).
 
 The kernels (these, csrc/jacobian.cu's in ops/cuda_jacobian.py,
-csrc/precise.cu's in ops/cuda_precise.py and csrc/pu.cu's in
-ops/cuda_pu.py) are compiled with nvcc for
+csrc/precise.cu's in ops/cuda_precise.py, csrc/pu.cu's in
+ops/cuda_pu.py and csrc/lu_solve.cu's in ops/cuda_solve.py) are compiled with nvcc for
 sm_90a at first use, from the sources in csrc/ alone, one nvcc per source
 started together, then linked into one library in csrc/build/ under a
 name keyed by a hash of the sources and flags (a stale library is never
@@ -90,6 +90,7 @@ ABI = {
     "fd_eval_precise": "p" * 13 + "i" * 8 + "ffp",
     "fd_log_probe": "p" * 3 + "ip",
     "fd_pu_tiles": "p" * 10 + "i" * 9 + "p",
+    "fd_lu_solve": "p" * 6 + "i" * 4 + "p",
 }
 
 _lib = None

@@ -34,7 +34,7 @@ from facedeform_tpu_torch.ops import krylov
 from facedeform_tpu_torch.ops.kernels import kernel_is_pd, nearest_neighbor_dist
 from facedeform_tpu_torch.ops.precise_eval import GROWING_KERNELS
 from facedeform_tpu_torch.ops.solve import (
-    SolveReport, _lu_against_df_impl, _lu_refined_impl, lu_factor_hp,
+    LUFactors, SolveReport, _lu_against_df_impl, _lu_refined_impl, lu_factor_hp,
 )
 from facedeform_tpu_torch.utils import errors, profiling
 from facedeform_tpu_torch.utils.precision import highest_precision
@@ -155,12 +155,12 @@ def _lam_col(lam: torch.Tensor) -> torch.Tensor:
 class LayerFactors(NamedTuple):
     """Pose-independent artifacts of one dense layer's solve: the system
     (a_lo is the float64 remainder for growing kernels, None otherwise)
-    and the f32 LU factors of a_hi."""
+    and the f32 LU factors of a_hi, with what every solve of a refit reads
+    beside them (solve.LUFactors)."""
 
     a_hi: torch.Tensor
     a_lo: Optional[torch.Tensor]
-    lu: torch.Tensor
-    piv: torch.Tensor
+    factors: LUFactors
 
 
 class FitFactors(NamedTuple):
@@ -186,8 +186,7 @@ def _assemble_layer(rest_ctrl, kernel, term, eps_l, lam0):
 
 
 def _factor_layer(a_hi, a_lo) -> LayerFactors:
-    lu, piv = lu_factor_hp(a_hi)
-    return LayerFactors(a_hi=a_hi, a_lo=a_lo, lu=lu, piv=piv)
+    return LayerFactors(a_hi, a_lo, lu_factor_hp(a_hi))
 
 
 def _resolve_layer(lay: LayerFactors, b: torch.Tensor, n_refine: int):
@@ -198,9 +197,9 @@ def _resolve_layer(lay: LayerFactors, b: torch.Tensor, n_refine: int):
     with profiling.span("fit.refine"):
         if lay.a_lo is not None:
             return _lu_against_df_impl(lay.a_hi, lay.a_lo, b, max(n_refine, 3),
-                                       lu_piv=(lay.lu, lay.piv))
+                                       f=lay.factors)
         (x, x_lo), report, _ = _lu_refined_impl(lay.a_hi, b, n_refine, want_lo=True,
-                                                lu_piv=(lay.lu, lay.piv))
+                                                f=lay.factors)
         return (x, x_lo), report
 
 
@@ -517,10 +516,10 @@ def fit_frames_per_pose(
         else:
             with profiling.span("fit.assemble"):
                 a = assemble_system(rest_ctrl, kernel, term, eps_l, lam0)
-            lu_piv = lu_factor_hp(a.expand(f, *a.shape))
+            factors = lu_factor_hp(a.expand(f, *a.shape))
             with profiling.span("fit.refine"):
                 (x, x_lo), report, _ = _lu_refined_impl(
-                    a, b, cfg.n_refine, want_lo=True, lu_piv=lu_piv)
+                    a, b, cfg.n_refine, want_lo=True, f=factors)
         w_l = x[:, :n]
         w_layers.append(w_l)
         w_lo_layers.append(x_lo[:, :n])

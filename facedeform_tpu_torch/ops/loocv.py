@@ -38,7 +38,9 @@ from facedeform_tpu_torch.config import (
     RBFModelType,
 )
 from facedeform_tpu_torch.ops.assemble import assemble_rhs, assemble_system
-from facedeform_tpu_torch.ops.solve import SolveReport, lu_solve, lu_solve_refined_factored
+from facedeform_tpu_torch.ops.solve import (
+    LUFactors, SolveReport, lu_solve, lu_solve_refined_factored,
+)
 from facedeform_tpu_torch.utils.precision import highest_precision
 
 # Half-octave steps over +-3 octaves around the user's value: wide enough
@@ -75,7 +77,7 @@ def loocv_errors(
     # solves against the identity), not a second factorization
     with highest_precision():
         eye = torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
-        binv_diag = torch.diagonal(lu_solve(lu, piv, eye))[:n]
+        binv_diag = torch.diagonal(lu_solve(LUFactors(lu, piv), eye))[:n]
     w = x[:n]
     # a vanishing diagonal means the leave-i-out system is singular
     # (duplicate points): the sign-keeping floor gives a huge e_i, which

@@ -22,6 +22,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from facedeform_tpu_torch.ops import cuda_solve
 from facedeform_tpu_torch.utils import profiling
 from facedeform_tpu_torch.utils.precision import highest_precision
 
@@ -66,7 +67,28 @@ def _report_from(a_norm, lu_diag, x, b, r) -> SolveReport:
     )
 
 
-def lu_factor_hp(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+class LUFactors(NamedTuple):
+    """An f32 LU factorization: LAPACK's lu and pivots and, for a factor
+    the kernel of cuda_solve can solve against (cuda_solve.takes_factor: a
+    2-D f32 factor on the card), what it reads beside them, computed once
+    so that no solve recomputes it: the pivots' row permutation
+    (cuda_solve.lu_perm) and the diagonal blocks' inverses
+    (cuda_solve.block_inverses).  Factors without them, LUFactors(lu, piv),
+    take torch.linalg.lu_solve."""
+
+    lu: torch.Tensor
+    piv: torch.Tensor
+    perm: Optional[torch.Tensor] = None
+    dinv: Optional[torch.Tensor] = None
+
+
+def _factors(lu: torch.Tensor, piv: torch.Tensor) -> LUFactors:
+    if not cuda_solve.takes_factor(lu):
+        return LUFactors(lu, piv)
+    return LUFactors(lu, piv, cuda_solve.lu_perm(piv), cuda_solve.block_inverses(lu))
+
+
+def lu_factor_hp(a: torch.Tensor) -> LUFactors:
     """f32 LU factorization with TF32 off.
 
     lu_factor_ex does not raise on a zero pivot: a singular system shows
@@ -75,14 +97,26 @@ def lu_factor_hp(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     behaviour).  A span, fit.factor."""
     with profiling.span("fit.factor"), highest_precision():
         lu, piv, _ = torch.linalg.lu_factor_ex(a.float())
-    return lu, piv
+        return _factors(lu, piv)
 
 
-def lu_solve(lu: torch.Tensor, piv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """torch.linalg.lu_solve, one triangular-solve pair, counted in
-    fit.lu_solves."""
+def _as_factors(lu_piv) -> LUFactors:
+    """LUFactors from lu_factor_hp's output or a caller's (lu, piv) pair,
+    converted once where a public function accepts one."""
+    return lu_piv if isinstance(lu_piv, LUFactors) else _factors(*lu_piv)
+
+
+def lu_solve(f: LUFactors, b: torch.Tensor) -> torch.Tensor:
+    """Solve against LU factors, counted in fit.lu_solves.  Factors that
+    carry the permutation and diagonal-block inverses (lu_factor_hp's of a
+    2-D f32 factor on the card), with 1 to cuda_solve.K_MAX right-hand-side
+    columns in a solve autograd need not differentiate, go to the
+    hand-written kernel (cuda_solve.takes); anything else to
+    torch.linalg.lu_solve."""
     profiling.count("fit.lu_solves")
-    return torch.linalg.lu_solve(lu, piv, b)
+    if cuda_solve.takes(f, b):
+        return cuda_solve.lu_solve_cuda(f.lu, f.perm, f.dinv, b)
+    return torch.linalg.lu_solve(f.lu, f.piv, b)
 
 
 def _residual64(a64: torch.Tensor, x_hi, x_lo, b64: torch.Tensor) -> torch.Tensor:
@@ -102,27 +136,28 @@ def _two_sum(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tens
     return s, (a - (s - bb)) + (b - bb)
 
 
-def _lu_refined_impl(a, b, n_refine, want_lo, lu_piv=None):
+def _lu_refined_impl(a, b, n_refine, want_lo, f=None):
     """Iterative refinement with the solution kept in double-float.
 
     Folding each correction into an f32 x would re-round the solution every
     sweep and stall the forward error near u * cond; carrying (x_hi, x_lo)
-    converges it to ~cond * u^2.  Returns ((x_hi, x_lo), report, (lu, piv)).
+    converges it to ~cond * u^2.  Returns ((x_hi, x_lo), report, f), f the
+    LUFactors of a (factored here unless given).
 
     b may carry a leading batch axis (F, n, k) against one (n, n) system
-    a; lu_piv then holds F factorizations of a (the per-pose route of
+    a; f then holds F factorizations of a (the per-pose route of
     fit_frames), and the report's fields carry the batch axis.
     """
     a = a.float()
     b = b.float()
     a64, b64 = a.double(), b.double()
     with highest_precision():
-        lu, piv = lu_factor_hp(a) if lu_piv is None else lu_piv
-        x_hi = lu_solve(lu, piv, b)
+        f = lu_factor_hp(a) if f is None else f
+        x_hi = lu_solve(f, b)
         x_lo = torch.zeros_like(x_hi)
         for _ in range(n_refine):
             r = _residual64(a64, x_hi, x_lo, b64)
-            dx = lu_solve(lu, piv, r)
+            dx = lu_solve(f, r)
             # bits of dx lost rounding into x_hi go to x_lo
             x_hi, e = _two_sum(x_hi, dx)
             x_lo = x_lo + e
@@ -130,11 +165,11 @@ def _lu_refined_impl(a, b, n_refine, want_lo, lu_piv=None):
     # of that f32 solution, not of the internal pair.
     r = _residual64(a64, x_hi, x_lo if want_lo else None, b64)
     report = _report_from(
-        torch.linalg.norm(a), torch.diagonal(lu, dim1=-2, dim2=-1), x_hi, b, r
+        torch.linalg.norm(a), torch.diagonal(f.lu, dim1=-2, dim2=-1), x_hi, b, r
     )
     if not want_lo:
         x_lo = torch.zeros_like(x_hi)
-    return (x_hi, x_lo), report, (lu, piv)
+    return (x_hi, x_lo), report, f
 
 
 def lu_solve_refined(
@@ -161,8 +196,8 @@ def lu_solve_refined_factored(
     """lu_solve_refined that also returns the (lu, piv) factors: LOOCV
     (ops/loocv.py) derives the inverse diagonal of the same matrix from
     them with two triangular solves instead of a second factorization."""
-    (x, _), report, lu_piv = _lu_refined_impl(a, b, n_refine, want_lo=False)
-    return x, report, lu_piv
+    (x, _), report, f = _lu_refined_impl(a, b, n_refine, want_lo=False)
+    return x, report, (f.lu, f.piv)
 
 
 def cholesky_solve_refined(
@@ -193,8 +228,9 @@ def cholesky_solve_refined(
 def lu_resolve_refined_df(
     lu_piv, a: torch.Tensor, b: torch.Tensor, n_refine: int = 2
 ) -> tuple[tuple[torch.Tensor, torch.Tensor], SolveReport]:
-    """lu_solve_refined_df against precomputed (lu, piv) factors of a."""
-    x_pair, report, _ = _lu_refined_impl(a, b, n_refine, want_lo=True, lu_piv=lu_piv)
+    """lu_solve_refined_df against precomputed factors of a: lu_factor_hp's
+    LUFactors or an (lu, piv) pair."""
+    x_pair, report, _ = _lu_refined_impl(a, b, n_refine, want_lo=True, f=_as_factors(lu_piv))
     return x_pair, report
 
 
@@ -213,9 +249,9 @@ def _map_col_blocks(refine_fn, b: torch.Tensor, kb: int = 3):
     return tuple(torch.cat(parts, dim=-1) for parts in zip(*outs))
 
 
-def _lu_against_df_impl(a_hi, a_lo, b, n_refine, gmres_ir=True, lu_piv=None):
+def _lu_against_df_impl(a_hi, a_lo, b, n_refine, gmres_ir=True, f=None):
     """Solve (a_hi + a_lo) X = b with an f32 LU of a_hi (factored here
-    unless (lu, piv) are given) and the solution kept as (x_hi, x_lo).
+    unless its LUFactors f are given) and the solution kept as (x_hi, x_lo).
 
     Each sweep's residual b - (a_hi + a_lo)(x_hi + x_lo) is float64.  With
     gmres_ir its correction equation is solved by LU-preconditioned GMRES
@@ -227,15 +263,17 @@ def _lu_against_df_impl(a_hi, a_lo, b, n_refine, gmres_ir=True, lu_piv=None):
 
     a_hi, a_lo (K, n, n) and b (K, n, k) carry a batch of K systems (the
     partition-of-unity patches); the stationary sweeps run batched, GMRES-IR
-    one system after another.  Returns ((x_hi, x_lo), report), the
+    one system after another, each against its slice of the batched
+    factors, as torch.linalg.lu_solve takes them.  Returns ((x_hi, x_lo), report), the
     report's fields with the leading K axis."""
     from facedeform_tpu_torch.ops.krylov import gmres
 
     a_hi, a_lo, b = a_hi.float(), a_lo.float(), b.float()
     with highest_precision():
-        lu, piv = lu_factor_hp(a_hi) if lu_piv is None else lu_piv
+        f = lu_factor_hp(a_hi) if f is None else f
     if gmres_ir and a_hi.ndim == 3:
-        outs = [_lu_against_df_impl(a_hi[i], a_lo[i], b[i], n_refine, True, (lu[i], piv[i]))
+        outs = [_lu_against_df_impl(a_hi[i], a_lo[i], b[i], n_refine, True,
+                                    LUFactors(f.lu[i], f.piv[i]))
                 for i in range(a_hi.shape[0])]
         x_hi = torch.stack([o[0][0] for o in outs])
         x_lo = torch.stack([o[0][1] for o in outs])
@@ -244,7 +282,7 @@ def _lu_against_df_impl(a_hi, a_lo, b, n_refine, gmres_ir=True, lu_piv=None):
     with highest_precision():
 
         def msolve(v):
-            return lu_solve(lu, piv, v)
+            return lu_solve(f, v)
 
         def matvec(v):
             return a_hi @ v + a_lo @ v
@@ -265,7 +303,7 @@ def _lu_against_df_impl(a_hi, a_lo, b, n_refine, gmres_ir=True, lu_piv=None):
 
         x_hi, x_lo, r = _map_col_blocks(refine, b)
     report = _report_from(torch.linalg.norm(a_hi, dim=(-2, -1)),
-                          torch.diagonal(lu, dim1=-2, dim2=-1), x_hi, b, r)
+                          torch.diagonal(f.lu, dim1=-2, dim2=-1), x_hi, b, r)
     return (x_hi, x_lo), report
 
 
@@ -285,5 +323,6 @@ def lu_solve_refined_against_df(
 def lu_resolve_refined_against_df(
     lu_piv, a_hi: torch.Tensor, a_lo: torch.Tensor, b: torch.Tensor, n_refine: int = 3,
 ) -> tuple[tuple[torch.Tensor, torch.Tensor], SolveReport]:
-    """lu_solve_refined_against_df against precomputed factors of A_hi."""
-    return _lu_against_df_impl(a_hi, a_lo, b, n_refine, lu_piv=lu_piv)
+    """lu_solve_refined_against_df against precomputed factors of A_hi:
+    lu_factor_hp's LUFactors or an (lu, piv) pair."""
+    return _lu_against_df_impl(a_hi, a_lo, b, n_refine, f=_as_factors(lu_piv))

@@ -260,11 +260,11 @@ def test_a_failing_span_or_stage_closes_and_the_next_is_a_root():
 
 
 def test_counters_are_registered_at_import_and_an_unknown_name_is_refused():
-    from facedeform_tpu_torch.ops import cuda_eval, cuda_jacobian, cuda_precise, cuda_pu
+    from facedeform_tpu_torch.ops import cuda_eval, cuda_jacobian, cuda_precise, cuda_pu, cuda_solve
 
-    mods = (cuda_eval, cuda_jacobian, cuda_precise, cuda_pu)
+    mods = (cuda_eval, cuda_jacobian, cuda_precise, cuda_pu, cuda_solve)
     launches = [k for k in profiling.counters() if k.startswith("launches.")]
-    assert len(launches) == 14
+    assert len(launches) == 15
     for k in launches:
         wrappers = [m for m in mods if callable(getattr(m, k.split(".", 1)[1], None))]
         assert len(wrappers) == 1, k
