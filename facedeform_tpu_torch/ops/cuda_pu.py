@@ -339,7 +339,9 @@ def evaluate_pu_tiles_frames(models, points, plan: PUTilePlan,
     return _tiles(models, points, plan, kernel, "evaluate_pu_tiles_frames")
 
 
+@profiling.traced("pu.tiles")
 def evaluate_pu_tiles(model, points, plan: PUTilePlan, kernel: RBFKernel) -> torch.Tensor:
     """Scatter-free PU displacement (V, 3) in the caller's point order: the
-    F = 1 case of evaluate_pu_tiles_frames (one launch on the card)."""
+    F = 1 case of evaluate_pu_tiles_frames (one launch on the card); a
+    span, pu.tiles."""
     return _tiles((model,), points, plan, kernel, "evaluate_pu_tiles")[0]

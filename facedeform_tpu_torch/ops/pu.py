@@ -49,11 +49,19 @@ from facedeform_tpu_torch.utils.precision import highest_precision
 # patches is fitted: a_hi, a_lo and the f32 LU (12 B), the float64
 # system the residual runs against (8 B) and the assembly's float64
 # difference, d2 and phi temporaries (~36 B).  The budget, a fifth of the
-# H100's 80 GB, leaves room for the eval's 1M-vertex buffers; it fits a
-# 30k-control rig's 256 patches of P + m = 580 (4.7e9 B) in one chunk.
+# H100's 80 GB, leaves room for the eval's 1M-vertex buffers; it fits in
+# one chunk a 30k-control rig's 256 patches of P + m = 580 (4.8e9 B) and
+# a 53,490-control rig's 512 patches of P + m = 644 (1.19e10 B).  The
+# latter's whole node cook on a 1M-vertex mesh peaks at 1.10e10 B on an
+# H100, so 56 B an entry bounds the working set from above.
 # (The JAX package budgets 2 GB of TPU HBM for ~6 f32 buffers per entry.)
 _FIT_BYTES_PER_ENTRY = 56
 pu_fit_budget = 16e9
+
+# Counters (utils/profiling.py): patch sets built (build_patches) and eval
+# plans built (plan_eval / plan_eval_tiles through the facades).
+for _name in ("pu.patch_sets", "pu.plans"):
+    profiling.count(_name, 0)
 
 
 # --------------------------------------------------------------- host build
@@ -97,6 +105,7 @@ class PUPatches(NamedTuple):
     spacing: np.ndarray   # (K,)  f32 median nearest-neighbor distance
 
 
+@profiling.traced("pu.patches")
 def build_patches(
     ctrl: np.ndarray, patch_size: int = 192, overlap: float = 1.3,
     width_bucket: int = 64,
@@ -108,9 +117,11 @@ def build_patches(
     each cell's bounding radius into its support radius (> 1 puts every
     control strictly inside its own cell's support).  width_bucket rounds
     P up to a multiple (default 64); the extra columns are masked padding.
+    A span, pu.patches; counted in pu.patch_sets.
     """
     from scipy.spatial import cKDTree
 
+    profiling.count("pu.patch_sets")
     bucket = max(int(width_bucket), 1)
     pad_to = lambda p: -(-p // bucket) * bucket  # noqa: E731
 
@@ -339,11 +350,13 @@ def _fit_chunk(ctrl, valid, centers, rhs, eps, kernel, term, lam, gmres_ir=True)
     """Assembly + refined LU solve for a chunk of patches: ((x_hi, x_lo)
     of shape (C, P + m, cols), per-patch SolveReport).  rhs may carry 3
     columns (one pose) or 3F (a shot): the patch systems depend only on
-    the rest rig, so every frame shares one assembly and factorization."""
-    a_hi, a_lo, _ = _assemble_patch(ctrl, valid, centers, kernel, term, eps, lam)
-    m = _n_poly(term)
-    b = torch.cat([rhs * valid[..., None],
-                   rhs.new_zeros((rhs.shape[0], m, rhs.shape[-1]))], dim=1)
+    the rest rig, so every frame shares one assembly and factorization.
+    A span, pu.assemble (the factorization is fit.factor)."""
+    with profiling.span("pu.assemble"):
+        a_hi, a_lo, _ = _assemble_patch(ctrl, valid, centers, kernel, term, eps, lam)
+        m = _n_poly(term)
+        b = torch.cat([rhs * valid[..., None],
+                       rhs.new_zeros((rhs.shape[0], m, rhs.shape[-1]))], dim=1)
     return lu_solve_refined_against_df(a_hi, a_lo, b, gmres_ir=gmres_ir)
 
 
@@ -354,9 +367,11 @@ def _nanmax0(x: torch.Tensor) -> torch.Tensor:
     return torch.where(nan.all(0), torch.full_like(out, float("nan")), out)
 
 
+@profiling.traced("pu.fit")
 def _fit_pu_rhs(rest_np, patches, rhs_pad, kernel, term, eps, lam, chunk, device,
                 confidence=None):
-    """Shared fit machinery: chunked batched solves on `device`.
+    """Shared fit machinery: chunked batched solves on `device`; a span,
+    pu.fit.
 
     Returns (PUModel built from the first 3 solution columns, aggregate
     SolveReport over every patch and column, raw (x_hi, x_lo) of shape
@@ -707,6 +722,14 @@ def jacobian_pu(
 _BACKENDS = ("auto", "plain", "cuda")
 
 
+def _build_plan(build):
+    """build() of an eval plan (plan_eval or cuda_pu.plan_eval_tiles): a
+    span, pu.plan, counted in pu.plans."""
+    profiling.count("pu.plans")
+    with profiling.span("pu.plan"):
+        return build()
+
+
 class PUDeformer:
     """Solve-once / eval-many facade over fit_pu + the PU evals.
 
@@ -834,8 +857,8 @@ class PUDeformer:
             )
         points_np = _host(points_np)
         if self._use_tiles(backend, precise):
-            return plan_eval_tiles(self.patches, points_np)
-        return plan_eval(self.patches, points_np)
+            return _build_plan(lambda: plan_eval_tiles(self.patches, points_np))
+        return _build_plan(lambda: plan_eval(self.patches, points_np))
 
     def _cached_plan(self, points_np: np.ndarray, tag: str, build):
         key = (
@@ -845,7 +868,7 @@ class PUDeformer:
         )
         plan = _lru_hit(self._plan_cache, key)
         if plan is None:
-            plan = build()
+            plan = _build_plan(build)
             _lru_put(self._plan_cache, key, plan)
         return plan
 
