@@ -128,6 +128,10 @@ class FaceDeformNode:
         # at O(n^2) instead of refactoring at O(n^3).
         self._fit_plan = None
         self._fit_plan_key: Optional[tuple] = None
+        # The PU route's eval plans (PUNodeDeformer._plans), kept across its
+        # refits: keyed on the patch geometry and the mesh's data id, so a
+        # new pose of the same rest rig and mesh reuses the host-built plan.
+        self._pu_plans: dict = {}
         self._rest_key: Optional[int] = None
         self._rest_attr: Optional[np.ndarray] = None
         # Autotuned eval backend (dense vs culled kernel), keyed on (mesh
@@ -710,7 +714,7 @@ class FaceDeformNode:
 
                     self._deformer = PUNodeDeformer.fit(
                         rest_rig.points, deform_rig.points, cfg, params,
-                        confidence=confidence, device=dev,
+                        confidence=confidence, device=dev, plans=self._pu_plans,
                     )
                 else:
                     from facedeform_tpu_torch.deformer import FitPlan
@@ -803,7 +807,8 @@ class FaceDeformNode:
             with profiling.span("eval.apply"):
                 if isinstance(deformer, _PUND):
                     # plan keyed on the mesh positions' data id: no per-cook
-                    # content hash of the full point buffer
+                    # content hash of the full point buffer, and a pose-only
+                    # refit keeps it
                     new_pts, falloff = deformer.apply(
                         rest_pts, dist2=dist2, frame=frame,
                         group_mask=mask_t, backend=backend,

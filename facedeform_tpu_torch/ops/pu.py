@@ -58,9 +58,10 @@ from facedeform_tpu_torch.utils.precision import highest_precision
 _FIT_BYTES_PER_ENTRY = 56
 pu_fit_budget = 16e9
 
-# Counters (utils/profiling.py): patch sets built (build_patches) and eval
-# plans built (plan_eval / plan_eval_tiles through the facades).
-for _name in ("pu.patch_sets", "pu.plans"):
+# Counters (utils/profiling.py): patch sets built (build_patches), eval
+# plans built (plan_eval / plan_eval_tiles through the facades) and eval
+# plans the node route found in its cache (PUNodeDeformer.apply).
+for _name in ("pu.patch_sets", "pu.plans", "pu.plan_hits"):
     profiling.count(_name, 0)
 
 
@@ -213,6 +214,17 @@ def coverage_and_fallback(patches: PUPatches, points: np.ndarray):
     rel = dists / patches.radii[nearest]
     pick = nearest[np.arange(len(un)), rel.argmin(axis=1)]
     return per_patch, covered, (un, pick.astype(np.int64))
+
+
+def patch_digest(patches: PUPatches) -> bytes:
+    """Digest of what the plan builders read of the patches: the centers
+    and support radii (coverage_and_fallback).  build_patches is
+    deterministic in the rest rig, so a pose-only refit's patches, and the
+    plans keyed on this digest, carry over."""
+    h = hashlib.blake2b(digest_size=16)
+    for a in (patches.centers, patches.radii):
+        h.update(np.ascontiguousarray(a, np.float32).tobytes())
+    return h.digest()
 
 
 def plan_eval(
@@ -747,6 +759,7 @@ class PUDeformer:
         self.auto_eps = auto_eps
         self.report: Optional[SolveReport] = None
         self._plan_cache: dict = {}
+        self.plan_digest = patch_digest(patches)
 
     @property
     def device(self) -> torch.device:
@@ -1010,8 +1023,9 @@ class PUNodeDeformer:
     pud: PUDeformer
     cfg: object
     params: object
-    # mutable per-instance plan cache (plan key -> eval plan); compare/repr
-    # excluded so the frozen dataclass stays value-like
+    # mutable plan cache (plan key -> eval plan), handed from fit to fit by
+    # the node (fit(plans=)); compare/repr excluded so the frozen dataclass
+    # stays value-like
     _plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
@@ -1033,7 +1047,10 @@ class PUNodeDeformer:
 
     @classmethod
     def fit(cls, rest_ctrl, deformed_ctrl, cfg, params, mesh_devices=None,
-            confidence=None, device="cuda") -> "PUNodeDeformer":
+            confidence=None, device="cuda", plans=None) -> "PUNodeDeformer":
+        """plans: an earlier fit's plan cache to keep using.  Its keys hold
+        the patch geometry's digest, so a pose-only refit (same rest rig,
+        bit-equal patches) reuses its plans and any other refit misses."""
         from facedeform_tpu_torch.utils import errors
 
         _no_mesh(mesh_devices, "PUNodeDeformer.fit")
@@ -1044,7 +1061,7 @@ class PUNodeDeformer:
             confidence=confidence, device=device,
         )
         errors.check_solve(pud.report)
-        return cls(pud=pud, cfg=cfg, params=params)
+        return cls(pud=pud, cfg=cfg, params=params, _plans={} if plans is None else plans)
 
     def apply(self, points, dist2=None, frame=None, group_mask=None,
               backend: str = "auto", plan_key=None, mesh_devices=None):
@@ -1053,7 +1070,8 @@ class PUNodeDeformer:
         any other name ("auto", the global family's "cuda_culled", ...)
         takes the auto route.  plan_key keys the eval plan (the node passes
         the mesh's position data id) instead of a digest of the points'
-        bytes."""
+        bytes, together with the patch geometry's digest and the route; a
+        hit counts in pu.plan_hits."""
         from facedeform_tpu_torch.ops.falloff import falloff_weight
         from facedeform_tpu_torch.ops.tangent import project_to_tangents
 
@@ -1064,10 +1082,16 @@ class PUNodeDeformer:
         pu_backend = backend if backend in ("plain", "cuda") else "auto"
         plan = None
         if plan_key is not None:
-            plan = self._plan_get((plan_key, pu_backend))
+            # the route, not the backend's name: "auto" builds a tile plan
+            # on the card and a plain one on the CPU
+            tiles = self.pud._use_tiles(pu_backend, precise=not self.pud.auto_eps)
+            key = (self.pud.plan_digest, plan_key, tiles)
+            plan = self._plan_get(key)
             if plan is None:
                 plan = self.pud.make_plan(_host(points), backend=pu_backend)
-                self._plan_put((plan_key, pu_backend), plan)
+                self._plan_put(key, plan)
+            else:
+                profiling.count("pu.plan_hits")
         disp = self.pud.displacement(pts, plan=plan, backend=pu_backend)
         if self.cfg.tangent and frame is not None:
             disp = project_to_tangents(

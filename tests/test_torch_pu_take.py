@@ -152,6 +152,117 @@ def test_pu_roofline_counts():
     assert ev.seconds() == pytest.approx(21e9 / 67e12)
 
 
+# ------------------------------------------- the eval plan across pose refits
+def _scene400():
+    c = _config(400, 24)
+    scene = catalog.scene("sphere_markers")(c, SEED, torch.device("cpu"))
+    return scene, drive.program_config(c)
+
+
+def _take_poses(scene, frames: int, take: int = 0) -> list:
+    mix = {"amplitude": 0.05, "harmonics": 4, "wavenumber": 3.0}
+    return list(inputs.shot_poses(scene.rest, mix, frames, 24.0, SEED, take).numpy())
+
+
+class _Take:
+    """One node cooking the poses of a take as gpubench/loops/take.py does:
+    the same mesh and rest-rig Meshes every cook, a new posed rig."""
+
+    def __init__(self, scene, cfg, params, mesh=None, rest=None):
+        self.scene, self.cfg, self.params = scene, cfg, params
+        self.mesh = mesh or Mesh(points=scene.points, faces=scene.faces)
+        if rest is None:
+            rest = Mesh(points=scene.rest)
+            rest.set_attr("class", scene.classes)
+        self.rest = rest
+        self.shapes = [Mesh(points=s) for s in scene.shapes]
+        self.node = FaceDeformNode(device="cpu")
+
+    def cook(self, pose, **kw):
+        """(CookResult, the PU counters' deltas over the cook)."""
+        names = ("pu.patch_sets", "pu.plans", "pu.plan_hits")
+        before = [profiling.counter(n) for n in names]
+        res = self.node.cook([self.mesh, self.rest, Mesh(points=pose)] + self.shapes,
+                             self.cfg, self.params, **kw)
+        return res, {n: profiling.counter(n) - b for n, b in zip(names, before)}
+
+    def fresh(self, pose, **kw):
+        """The same cook on a node that has cooked nothing."""
+        return _Take(self.scene, self.cfg, self.params, self.mesh, self.rest).cook(pose, **kw)[0]
+
+
+def _equal(a, b) -> None:
+    """P and fd_falloff bit for bit."""
+    assert torch.equal(torch.as_tensor(a.mesh.points), torch.as_tensor(b.mesh.points))
+    assert torch.equal(torch.as_tensor(a.mesh.attr("fd_falloff")),
+                       torch.as_tensor(b.mesh.attr("fd_falloff")))
+
+
+def test_a_take_keeps_the_eval_plan_across_pose_refits():
+    """Four poses of a take through one node: every pose refits (a patch
+    set each), only the first builds a plan, the others find it, and each
+    cook equals a fresh node's cook of its pose bit for bit."""
+    scene, (cfg, params) = _scene400()
+    take = _Take(scene, cfg, params)
+    for i, pose in enumerate(_take_poses(scene, 4)):
+        res, n = take.cook(pose)
+        assert n == {"pu.patch_sets": 1, "pu.plans": 1 if i == 0 else 0,
+                     "pu.plan_hits": 0 if i == 0 else 1}
+        _equal(res, take.fresh(pose))
+
+
+def test_an_edited_rest_rig_or_a_new_mesh_rebuilds_the_plan():
+    """Misses: a rest rig with one marker moved changes the patch balls and
+    a new mesh Mesh its data id, so each builds a plan and equals a fresh
+    node's cook; the "plain" and "cuda" routes keep a plan each."""
+    scene, (cfg, params) = _scene400()
+    take = _Take(scene, cfg, params)
+    pose0, pose1, pose2 = _take_poses(scene, 3)
+    take.cook(pose0)
+
+    moved = scene.rest.copy()
+    moved[7] += 0.01
+    take.rest = Mesh(points=moved)
+    take.rest.set_attr("class", scene.classes)
+    res, n = take.cook(pose1)
+    assert n == {"pu.patch_sets": 1, "pu.plans": 1, "pu.plan_hits": 0}
+    _equal(res, take.fresh(pose1))
+
+    take.mesh = Mesh(points=scene.points.copy(), faces=scene.faces)
+    res, n = take.cook(pose2)
+    assert n == {"pu.patch_sets": 1, "pu.plans": 1, "pu.plan_hits": 0}
+    _equal(res, take.fresh(pose2))
+
+    d = take.node._deformer
+    pts = torch.as_tensor(scene.points)
+    built = profiling.counter("pu.plans")
+    out = {b: d.apply(pts, backend=b, plan_key=("routes", len(pts)))[0]
+           for b in ("plain", "cuda")}
+    assert profiling.counter("pu.plans") - built == 2
+    hits = profiling.counter("pu.plan_hits")
+    for b in ("plain", "cuda"):
+        assert torch.equal(d.apply(pts, backend=b, plan_key=("routes", len(pts)))[0], out[b])
+    assert profiling.counter("pu.plan_hits") - hits == 2
+    kinds = {type(p) for k, p in d._plans.items() if k[1] == ("routes", len(pts))}
+    assert kinds == {pu.PUEvalPlan, cuda_pu.PUTilePlan}
+
+
+def test_the_plan_cache_stays_bounded_across_a_take_with_secondaries():
+    """Twelve poses, each with two new secondary meshes: the cache holds at
+    most 8 plans, the main mesh's plan stays and is found every pose."""
+    scene, (cfg, params) = _scene400()
+    take = _Take(scene, cfg, params)
+    for i, pose in enumerate(_take_poses(scene, 12)):
+        secondary = [Mesh(points=scene.points[j::5] * (1.0 + 0.01 * i)) for j in (0, 1)]
+        res, n = take.cook(pose, secondary=secondary)
+        assert len(res.secondary) == 2
+        assert n["pu.plans"] == (3 if i == 0 else 2) and n["pu.plan_hits"] == (i > 0)
+        plans = take.node._deformer._plans
+        assert len(plans) <= 8
+        assert any(k[1] == (take.mesh.pos_id, take.mesh.num_points) for k in plans)
+    assert len(plans) == 8
+
+
 # ------------------------------------------------------- the harness, traced
 # The harness runs below use 2000 markers on a 24 x 24 sphere: at 400 a patch
 # spans a quarter of the sphere and the program's p_err on this seed reads
@@ -182,13 +293,15 @@ def _run(tmp_path, trace=True, seconds=5.0):
 
 
 def test_traced_take_reads_the_pu_spans_and_counters(tmp_path):
-    """A traced run of the cell: `correct`, a patch set and a plan rebuilt
-    every cook (pu.rebuilds 2), and host time in both builds."""
+    """A traced run of the cell: `correct`, a patch set rebuilt every cook
+    and the plan of the set-up's cold cook kept (pu.rebuilds 1), so host
+    time in the patch build and no plan span in the window (pu.plan_ms
+    absent)."""
     out = _run(tmp_path)
     assert out["correct"], out["checks"]
     m = {k: v["value"] for k, v in out["metrics"].items()}
-    assert m["pu.rebuilds"] == 2.0
-    assert m["pu.patches_ms"] > 0.0 and m["pu.plan_ms"] > 0.0
+    assert m["pu.rebuilds"] == 1.0
+    assert m["pu.patches_ms"] > 0.0 and "pu.plan_ms" not in m
     assert m["cook.solve_ms"] > 0.0 and m["cook.eval_ms"] > 0.0
     assert "pu_eval_roofline" not in m      # no device time on the CPU
 
