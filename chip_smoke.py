@@ -2613,8 +2613,7 @@ def time_pu(main_f: dict, shot: dict, label: str) -> list:
         "PUDeformer.displacement 1M (plan cached)": lambda: d.displacement(pts),
         # the cache hit alone (build is not called): the points' copy to the
         # host and the blake2b digest that keys the cache
-        "plan-cache lookup 1M (host copy + digest)": lambda: d._cached_plan(
-            pu._host(pts), "tiles", None),
+        "plan-cache lookup 1M (host copy + digest)": lambda: d.make_plan(pts),
         "evaluate_pu_tiles 1M x 30k": one,
         "operand packing 30k (_pack_frames_operands)": lambda: cuda_pu._pack_frames_operands(
             (d.model,)),
@@ -3919,7 +3918,7 @@ def main_path_node(dev, label: str, n_side: int = 1000, pu_n: int = NODE_PU_N,
         print(f"9a drag {len(drag_ms)}: {drag_ms[-1]:.2f} ms wall; stages {times.summary()}; "
               f"outside them {drag_ms[-1] - sum(times.ms.values()):.2f} ms", flush=True)
     last_pose = pose
-    plan_kept = node._fit_plan is not None
+    plan_kept = node._plan is not None
     print(f"9a {NODE_DRAGS} drag cooks: {min(drag_ms):.2f} ms best, {float(np.median(drag_ms)):.2f}"
           f" median wall; the FitPlan refit each time: {plan_kept}  [{label}]", flush=True)
     # the RBF pass alone (morphspace off, no transport): the same deformer
@@ -4114,7 +4113,7 @@ def main_path_export(dev, label: str, shared: dict = None, n_side: int = 1000,
     keywords cut the sizes for a rehearsal on the CPU)."""
     import tempfile
 
-    import facedeform_tpu_torch.node as node_mod
+    import facedeform_tpu_torch.deformer as deformer_mod
     from facedeform_tpu_torch import (DeformConfig, DeformParams, Deformer, FaceDeformNode, Mesh,
                                       fit_rig, load_mesh, save_mesh)
     from facedeform_tpu_torch.config import RBFKernel, RBFModelType
@@ -4348,13 +4347,13 @@ def main_path_export(dev, label: str, shared: dict = None, n_side: int = 1000,
         # the two cooks run one kernel)
         ck_node = FaceDeformNode(device=dev)
         ck_in = [mesh, rest_rig, Mesh(points=ex_poses[0])]
-        saved_backends = node_mod.AUTOTUNE_BACKENDS
-        node_mod.AUTOTUNE_BACKENDS = ("cuda_culled",)
+        saved_backends = deformer_mod.AUTOTUNE_BACKENDS
+        deformer_mod.AUTOTUNE_BACKENDS = ("cuda_culled",)
         try:
             res_mem = ck_node.cook(ck_in, cfg, params, deformer=dense, psd=psd)
             res_ck = ck_node.cook(ck_in, cfg, params, deformer=dense2, psd=psd2)
         finally:
-            node_mod.AUTOTUNE_BACKENDS = saved_backends
+            deformer_mod.AUTOTUNE_BACKENDS = saved_backends
         same_cook = (_same(res_mem.mesh.points, res_ck.mesh.points)
                      and _same(res_mem.mesh.attr("fd_falloff"), res_ck.mesh.attr("fd_falloff")))
         kinds = {"dense": k_dense, "tps": k_tps, "seq": k_seq, "pu": k_pu, "pu_seq": k_pus,
@@ -4471,16 +4470,16 @@ def main_path_export(dev, label: str, shared: dict = None, n_side: int = 1000,
             # chose (the autotune may pick either on a close call)
             direct_node = FaceDeformNode(device=dev)
             direct_in = [mesh, rest_rig, Mesh(points=poses[0])]
-            saved_backends = node_mod.AUTOTUNE_BACKENDS
+            saved_backends = deformer_mod.AUTOTUNE_BACKENDS
             if state["node"].last_backend in saved_backends:
-                node_mod.AUTOTUNE_BACKENDS = (state["node"].last_backend,)
+                deformer_mod.AUTOTUNE_BACKENDS = (state["node"].last_backend,)
             try:
                 _, direct_cold_s, _ = _cook_timed(direct_node, direct_in, h_cfg, h_params, dev,
                                                   group=h_group or None)
                 direct, direct_s, direct_times = _cook_timed(direct_node, direct_in, h_cfg,
                                                              h_params, dev, group=h_group or None)
             finally:
-                node_mod.AUTOTUNE_BACKENDS = saved_backends
+                deformer_mod.AUTOTUNE_BACKENDS = saved_backends
             walls["10f direct cold cook"], walls["10f direct warm cook"] = direct_cold_s, direct_s
             out_geo = sop.geometry()
             got = np.asarray(out_geo.pointFloatAttribValues("P"), np.float32).reshape(-1, 3)

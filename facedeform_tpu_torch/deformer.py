@@ -7,6 +7,12 @@ radius^2, disp = rbfcalc(P), optional tangent projection, falloff =
 restricted to the optional point group.  apply_fn is that step as a
 plain function; FitPlan is the pose-independent half of a dense fit (the
 interactive marker drag: factor once, refit each pose in O(n^2)).
+
+fit_route is the one seam between a caller that re-poses a rig (the
+node) and the fit routes: a cold fit returns the deformer and the route's
+pose-independent plan (a FitPlan, an ops.pu.PUFitPlan, or None where
+every pose is a cold fit), and plan.refit(pose) re-solves a new pose.
+fit_params_key says which params a route's solve reads.
 """
 
 from __future__ import annotations
@@ -33,6 +39,10 @@ _BACKENDS = ("dense", "dense_precise", "cuda", "cuda_culled", "cuda_precise")
 # for the slab tests (the JAX package's measured crossover).
 _CULL_MIN_VERTS = 4096
 
+#: the backends the node's autotune times where either kernel may win
+#: (Deformer.autotune_backends)
+AUTOTUNE_BACKENDS = ("cuda", "cuda_culled")
+
 
 def _apply_plain(evaluate_fn, model, points, dist2, frame, group_mask, cfg, params):
     """The plain deform step with the displacement from evaluate_fn."""
@@ -58,6 +68,56 @@ def apply_fn(model: RBFModel, points, dist2, frame, group_mask, cfg: DeformConfi
     return _apply_plain(evaluate, model, points, dist2, frame, group_mask, cfg, params)
 
 
+def fit_params_key(cfg: DeformConfig, params: DeformParams) -> tuple:
+    """Only the params cfg's route solves with, as plain floats: eval-only
+    knobs (the falloff rate, weight clamps) must not invalidate a cached
+    solve.  The PU route reads lam alone (per-patch radii are automatic);
+    the others read qcoef, zcoef, radius and lam, clamped to the cook-time
+    floors, so sub-floor slider values (lam 0.001 vs 0.005, both floored
+    to 0.01) do not refit a byte-identical model."""
+    if cfg.solver == "pu":
+        return (float(params.lam),)
+    return (
+        max(float(params.qcoef), 0.1), max(float(params.zcoef), 0.1),
+        max(float(params.radius), 0.01), max(float(params.lam), 0.01),
+    )
+
+
+def fit_route(rest_ctrl, deformed_ctrl, cfg: DeformConfig, params: DeformParams,
+              confidence=None, device="cuda"):
+    """A cold fit on cfg's route: (deformer, plan), where plan.refit(pose)
+    re-solves a new pose of the same rest rig, cfg and fit params, or plan
+    is None where each pose is a cold fit.  Dense: Deformer.fit_with_plan
+    (one factorization).  PU: an ops.pu.PUFitPlan (its eval plans kept
+    across refits).  Krylov: Deformer.fit, no plan (matrix-free)."""
+    if cfg.solver == "pu":
+        from facedeform_tpu_torch.ops.pu import PUFitPlan
+
+        plan = PUFitPlan(profiling.host_f32(rest_ctrl), cfg, params,
+                         confidence=confidence, device=device)
+        return plan.refit(deformed_ctrl), plan
+    if FitPlan.supports(cfg, len(rest_ctrl)):
+        return Deformer.fit_with_plan(rest_ctrl, deformed_ctrl, cfg, params,
+                                      confidence=confidence, device=device)
+    return Deformer.fit(rest_ctrl, deformed_ctrl, cfg, params,
+                        confidence=confidence, device=device), None
+
+
+def _fit_inputs(rest_ctrl, deformed_ctrl, confidence, device):
+    """The rigs as f32 tensors on `device` and the clipped confidence;
+    ShapeMismatchError on a rig count mismatch."""
+    rest_ctrl = profiling.to_device(rest_ctrl, device, torch.float32)
+    deformed_ctrl = profiling.to_device(deformed_ctrl, device, torch.float32)
+    if rest_ctrl.shape != deformed_ctrl.shape:
+        raise errors.ShapeMismatchError(
+            f"rest and deform rigs must match: {tuple(rest_ctrl.shape)} vs "
+            f"{tuple(deformed_ctrl.shape)}"
+        )
+    if confidence is not None:
+        confidence = fit_mod.confidence_clipped(confidence, rest_ctrl.shape[0], device)
+    return rest_ctrl, deformed_ctrl, confidence
+
+
 @dataclasses.dataclass(frozen=True)
 class Deformer:
     """A solved RBF deformation: model + config; eval-many across frames."""
@@ -81,7 +141,6 @@ class Deformer:
         check: bool = True,
         confidence=None,
         device="cuda",
-        want_plan: bool = False,
     ) -> "Deformer":
         """Solve the RBF system mapping rest_ctrl -> deformed_ctrl on `device`.
 
@@ -89,10 +148,9 @@ class Deformer:
         assembled and LU-solved; past it, or with solver="krylov", it is
         solved matrix-free (GMRES for QNN, PMINRES for MULTILAYER/KERNEL).
         `confidence` ((N,) per-marker quality in (0, 1]) weights the ridge
-        per marker (ridge families only).  want_plan=True returns
-        (deformer, FitPlan) on the dense route (see fit_with_plan).  Raises
-        ShapeMismatchError on a rig count mismatch and SolveFailedError on
-        solver blow-up, at the backward-error threshold of the route taken.
+        per marker (ridge families only).  Raises ShapeMismatchError on a
+        rig count mismatch and SolveFailedError on solver blow-up, at the
+        backward-error threshold of the route taken.
         """
         if cfg.solver == "pu":
             # the PU model is a different artifact (patch tensors, not an
@@ -102,34 +160,20 @@ class Deformer:
                 "solver='pu' is not a Deformer route — use "
                 "ops.pu.PUDeformer.fit (or ops.pu.PUSeqDeformer.fit for a shot)"
             )
-        rest_ctrl = profiling.to_device(rest_ctrl, device, torch.float32)
-        deformed_ctrl = profiling.to_device(deformed_ctrl, device, torch.float32)
-        if rest_ctrl.shape != deformed_ctrl.shape:
-            raise errors.ShapeMismatchError(
-                f"rest and deform rigs must match: {tuple(rest_ctrl.shape)} vs "
-                f"{tuple(deformed_ctrl.shape)}"
-            )
-        n = rest_ctrl.shape[0]
-        if confidence is not None:
-            confidence = fit_mod.confidence_clipped(confidence, n, device)
-        if want_plan:
-            model, report, factors = fit_mod.fit_with_factors(
-                rest_ctrl, deformed_ctrl, cfg.solve_view(), params, confidence=confidence)
-        else:
-            model, report = fit_mod.fit(
-                rest_ctrl, deformed_ctrl, cfg.solve_view(), params, confidence=confidence)
+        rest_ctrl, deformed_ctrl, confidence = _fit_inputs(
+            rest_ctrl, deformed_ctrl, confidence, device)
+        model, report = fit_mod.fit(
+            rest_ctrl, deformed_ctrl, cfg.solve_view(), params, confidence=confidence)
         if check:
             # the CPD-kernel Krylov route converges to the f32 Krylov noise
             # floor, not the refined-LU floor: match the route fit() took
             errors.check_solve(
                 report,
-                rtol=errors.KRYLOV_CPD_BACKWARD_RTOL if fit_mod.krylov_cpd(cfg, n)
+                rtol=errors.KRYLOV_CPD_BACKWARD_RTOL
+                if fit_mod.krylov_cpd(cfg, rest_ctrl.shape[0])
                 else errors.SOLVE_BACKWARD_RTOL,
             )
-        deformer = cls(model=model, cfg=cfg, params=params, report=report)
-        if want_plan:
-            return deformer, FitPlan(factors=factors, cfg=cfg, params=params)
-        return deformer
+        return cls(model=model, cfg=cfg, params=params, report=report)
 
     @classmethod
     def fit_with_plan(
@@ -153,11 +197,36 @@ class Deformer:
                 f"{'PU' if cfg.solver == 'pu' else 'Krylov'} - gate with "
                 "FitPlan.supports(cfg, n)"
             )
-        return cls.fit(rest_ctrl, deformed_ctrl, cfg, params, check=check,
-                       confidence=confidence, device=device, want_plan=True)
+        rest_ctrl, deformed_ctrl, confidence = _fit_inputs(
+            rest_ctrl, deformed_ctrl, confidence, device)
+        model, report, factors = fit_mod.fit_with_factors(
+            rest_ctrl, deformed_ctrl, cfg.solve_view(), params, confidence=confidence)
+        if check:
+            errors.check_solve(report, rtol=errors.SOLVE_BACKWARD_RTOL)
+        return (cls(model=model, cfg=cfg, params=params, report=report),
+                FitPlan(factors=factors, cfg=cfg, params=params))
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def autotune_backends(self, num_points: int) -> tuple:
+        """The apply backends the node's autotune times on a mesh of
+        num_points: ("auto",), apply's own rule, on a CPU model, for the
+        growing kernels (the f32 kernels break the 5e-5 budget for them:
+        only the float64 kernel will do) and below the culled kernel's
+        crossover; ("cuda",) for a kernel the culled kernel cannot take;
+        otherwise AUTOTUNE_BACKENDS."""
+        kernel = fit_mod.effective_kernel(self.cfg)
+        if (self.device.type != "cuda" or num_points < _CULL_MIN_VERTS
+                or kernel in GROWING_KERNELS):
+            return ("auto",)
+        if not cuda_eval.kernel_is_cullable(kernel):
+            return ("cuda",)
+        return AUTOTUNE_BACKENDS
 
     def _points(self, points) -> torch.Tensor:
-        return profiling.to_device(points, self.model.device, torch.float32)
+        return profiling.to_device(points, self.device, torch.float32)
 
     def displacement(self, points) -> torch.Tensor:
         """Raw RBF displacement field at points (V, 3) -> (V, 3); growing
@@ -212,6 +281,7 @@ class Deformer:
         group_mask=None,
         backend: str = "auto",
         spatial_perm=None,
+        points_key=None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Deform points on the model's device; returns (new_points (V, 3),
         fd_falloff (V,)).
@@ -233,6 +303,8 @@ class Deformer:
         culled kernel's slabs then hold neighbours) and the result is
         scattered back; each gather of 1M rows is device work the caller
         should amortize (a persistent mesh is better sorted once).
+        points_key: the caller's id for the point set, which the PU route
+        keys its eval plan on; the global model has no such plan.
         """
         if spatial_perm is not None:
             return self._apply_sorted(points, dist2, frame, group_mask, backend, spatial_perm)

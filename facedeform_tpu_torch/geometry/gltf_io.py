@@ -52,6 +52,8 @@ from typing import Optional
 
 import numpy as np
 
+from facedeform_tpu_torch.utils.profiling import host_f32
+
 _MAGIC = b"glTF"
 _JSON_CHUNK = 0x4E4F534A
 _BIN_CHUNK = 0x004E4942
@@ -170,13 +172,6 @@ def _rot_to_quat(r: np.ndarray) -> np.ndarray:
 
     q = quaternion_from_rotation(torch.as_tensor(np.asarray(r, np.float32), device="cpu"))
     return q.numpy().astype(np.float32)
-
-
-def _host(a) -> np.ndarray:
-    """A tensor (on any device) or array as host float32 numpy."""
-    if hasattr(a, "detach"):
-        a = a.detach().cpu().numpy()
-    return np.asarray(a, np.float32)
 
 
 def _mesh_primitive(bb: _BufferBuilder, mesh, extra_attrs=None) -> dict:
@@ -312,9 +307,9 @@ def save_glb_skinned(path: str, mesh, model, fps: float = 24.0,
     the flat layout: B parentless joints under one armature node,
     identity IBMs, world-space TRS.
     """
-    w = _host(model.weights)                              # (V, B)
-    rot = _host(model.rotations)                          # (F, B, 3, 3)
-    tra = _host(model.translations)                       # (F, B, 3)
+    w = host_f32(model.weights)                           # (V, B)
+    rot = host_f32(model.rotations)                       # (F, B, 3, 3)
+    tra = host_f32(model.translations)                    # (F, B, 3)
     v, b = w.shape
     f_n = rot.shape[0]
     if mesh.num_points != v:
@@ -345,7 +340,7 @@ def save_glb_skinned(path: str, mesh, model, fps: float = 24.0,
     })
 
     if hierarchy:
-        rest = _host(model.rest)
+        rest = host_f32(model.rest)
         cent = _bone_centroids(w, rest)
         if root is None:
             root = int(np.argmin(((cent - cent.mean(0)) ** 2).sum(-1)))
@@ -456,8 +451,8 @@ def save_glb_targets(path: str, mesh, targets: np.ndarray,
     (symek/facedeform writes deformed Houdini geometry only,
     src/SOP_FaceDeform.cpp:404-439).
     """
-    targets = _host(targets)
-    weights = _host(weights)
+    targets = host_f32(targets)
+    weights = host_f32(weights)
     if targets.ndim != 3 or targets.shape[-1] != 3:
         raise ValueError(f"targets must be (K, V, 3), got {targets.shape}")
     k_n, v = targets.shape[:2]
@@ -547,7 +542,7 @@ def save_glb_morph(path: str, mesh, frame_points: np.ndarray,
     only, src/SOP_FaceDeform.cpp); rebuild extension in the
     deform-seq -> engine export chain.
     """
-    frame_points = _host(frame_points)
+    frame_points = host_f32(frame_points)
     if frame_points.ndim != 3 or frame_points.shape[-1] != 3:
         raise ValueError(
             f"frame_points must be (F, V, 3), got {frame_points.shape}"

@@ -442,10 +442,10 @@ def _reduce_rig_for_cook(state, meshes, cfg, params, k, mode, warnings, device="
         # applies the cook-time floors itself, as the node's call sites
         # do.  fit_reduced consumes qcoef/zcoef/radius/lam + the
         # confidence attr (keyed via attr_id already).
-        from facedeform_tpu_torch.node import _fit_params_key
+        from facedeform_tpu_torch.deformer import fit_params_key
 
         key = (rest_rig.pos_id, rest_rig.attr_id, def_rig.pos_id,
-               cfg.solve_view(), _fit_params_key(params), k)
+               cfg.solve_view(), fit_params_key(cfg, params), k)
         cached = state.get("reduce_fit")
         if cached is not None and cached[0] == key:
             return meshes, cached[1]

@@ -23,7 +23,8 @@ Cache improvements over the reference (documented deviations):
     src/SOP_FaceDeform.cpp:310-312, SURVEY.md quirk 4);
   * the RBF solve is cached on (rig data ids, params) instead of being
     re-run every cook (:330-368 always rebuilds), and a pose-only change
-    re-solves through the cached FitPlan at O(n^2).
+    re-solves through the route's cached plan (deformer.fit_route: the
+    dense route's FitPlan at O(n^2)).
 
 The cook runs on one device: FaceDeformNode(device=...) ("cuda" by
 default), or the device of a deformer passed to cook(deformer=...).
@@ -41,20 +42,13 @@ import torch
 
 from facedeform_tpu_torch.capture.capture import CaptureResult, ProximityCapture
 from facedeform_tpu_torch.config import DeformConfig, DeformParams
-from facedeform_tpu_torch.deformer import Deformer
+from facedeform_tpu_torch.deformer import Deformer, fit_params_key, fit_route
 from facedeform_tpu_torch.geometry.mesh import Mesh
 from facedeform_tpu_torch.ops import dbse as dbse_ops
-from facedeform_tpu_torch.ops.pu import _host
 from facedeform_tpu_torch.utils import errors, profiling
-from facedeform_tpu_torch.utils.profiling import StageTimes, stage
+from facedeform_tpu_torch.utils.profiling import StageTimes, host_f32, stage
 
 profiling.count("eval.autotune_runs", 0)
-
-#: the autotune's candidates (Deformer.apply backends) and the mesh size
-#: below which it defers to apply's own "auto" (the culled kernel's
-#: crossover, deformer._CULL_MIN_VERTS)
-AUTOTUNE_BACKENDS = ("cuda", "cuda_culled")
-AUTOTUNE_MIN_VERTS = 4096
 
 
 def _no_mesh_devices(mesh_devices) -> None:
@@ -63,14 +57,6 @@ def _no_mesh_devices(mesh_devices) -> None:
             "cook(mesh_devices=...) shards the eval and morph passes across "
             "devices: multi-GPU is slice H of the port (parallel/), not ported yet"
         )
-
-
-def _device_of(deformer) -> torch.device:
-    """The device a Deformer or PUNodeDeformer evaluates on."""
-    model = getattr(deformer, "model", None)
-    if model is not None:
-        return model.device
-    return deformer.device
 
 
 @dataclasses.dataclass
@@ -92,17 +78,6 @@ class CookResult:
     secondary: tuple = ()
 
 
-def _fit_params_key(params: DeformParams) -> tuple:
-    """Only the params the RBF solve consumes (eval-only knobs such as the
-    falloff rate or weight clamps must not invalidate the cached solve),
-    clamped to the cook-time floors: sub-floor slider values (lam 0.001 vs
-    0.005, both floored to 0.01) must not refit a byte-identical model."""
-    return (
-        max(float(params.qcoef), 0.1), max(float(params.zcoef), 0.1),
-        max(float(params.radius), 0.01), max(float(params.lam), 0.01),
-    )
-
-
 def _all_params_key(params: DeformParams) -> tuple:
     """Every param as a plain float."""
     return tuple(float(v) for v in params[:-1]) + (int(params.maxedges),)
@@ -122,16 +97,14 @@ class FaceDeformNode:
         self._dbse_model: Optional[dbse_ops.DBSEModel] = None
         self._fit_key: Optional[tuple] = None
         self._deformer: Optional[Deformer] = None
-        # Pose-independent dense factorization (deformer.FitPlan), keyed on
-        # everything in the fit key EXCEPT the deformed rig: a marker drag
-        # (new pose, same rest rig/params) re-solves through plan.refit()
-        # at O(n^2) instead of refactoring at O(n^3).
-        self._fit_plan = None
-        self._fit_plan_key: Optional[tuple] = None
-        # The PU route's eval plans (PUNodeDeformer._plans), kept across its
-        # refits: keyed on the patch geometry and the mesh's data id, so a
-        # new pose of the same rest rig and mesh reuses the host-built plan.
-        self._pu_plans: dict = {}
+        # The fit route's pose-independent plan (deformer.fit_route), keyed
+        # on everything in the fit key EXCEPT the deformed rig: a marker
+        # drag (new pose, same rest rig/params) re-solves through
+        # plan.refit(), which keeps what the route can keep (the dense
+        # factorization, the PU eval plans); None where every pose is a
+        # cold fit.
+        self._plan = None
+        self._plan_key: Optional[tuple] = None
         self._rest_key: Optional[int] = None
         self._rest_attr: Optional[np.ndarray] = None
         # Autotuned eval backend (dense vs culled kernel), keyed on (mesh
@@ -388,33 +361,18 @@ class FaceDeformNode:
         solve key): culling wins on localized rigs and loses on spatially
         incoherent vertex orders, so a one-time measurement of both is the
         only rule that is right on every mesh.  Each candidate takes a
-        warm-up launch and then the best of 2, timed by CUDA events.  On
-        the CPU, below the size threshold, for PU and for the growing
-        kernels (their float64 route) it defers to apply's own "auto"."""
-        from facedeform_tpu_torch.ops import cuda_eval
-        from facedeform_tpu_torch.ops import fit as fit_mod
-        from facedeform_tpu_torch.ops.precise_eval import GROWING_KERNELS
-        from facedeform_tpu_torch.ops.pu import PUNodeDeformer
-
-        if isinstance(deformer, PUNodeDeformer):
-            return "auto"  # PU picks its own (tile kernel) path
-        kernel = fit_mod.effective_kernel(deformer.cfg)
-        if (
-            deformer.model.device.type != "cuda"
-            or mesh_in.num_points < AUTOTUNE_MIN_VERTS
-            or kernel in GROWING_KERNELS
-        ):
-            # growing kernels MUST defer to apply's "auto" (the float64
-            # kernel): the f32 kernels break the 5e-5 budget for them
-            return "auto"
-        if not cuda_eval.kernel_is_cullable(kernel):
-            return "cuda"
+        warm-up launch and then the best of 2, timed by CUDA events.  The
+        deformer names the candidates (autotune_backends); a single one is
+        taken untimed."""
+        cands = deformer.autotune_backends(mesh_in.num_points)
+        if len(cands) == 1:
+            return cands[0]
         key = (mesh_in.pos_id, self._fit_key)
         if key != self._backend_key:
             timings = {}
             profiling.count("eval.autotune_runs")
             with profiling.span("eval.autotune"):
-                for cand in AUTOTUNE_BACKENDS:
+                for cand in cands:
                     def run():
                         return deformer.apply(points, dist2=dist2, frame=frame,
                                               group_mask=group_mask, backend=cand)
@@ -427,7 +385,7 @@ class FaceDeformNode:
                         start.record()
                         run()
                         end.record()
-                        with profiling.blocking(deformer.model.device):
+                        with profiling.blocking(deformer.device):
                             end.synchronize()
                         best = min(best, start.elapsed_time(end))
                     timings[cand] = best
@@ -494,8 +452,9 @@ class FaceDeformNode:
         mesh_devices (vertex sharding across devices) raises
         NotImplementedError: multi-GPU is slice H of the port.
 
-        `deformer` (a solved Deformer or PUNodeDeformer) skips the RBF
-        solve stage and cooks with the precomputed model on its device.
+        `deformer` (a solved deformer: deformer.Deformer or the PU route's
+        facade) skips the RBF solve stage and cooks with the precomputed
+        model on its device.
         Solve-relevant cfg fields come from the deformer's own fit; THIS
         cook's cfg supplies only the eval-side toggles (tangent/morphspace/
         dofalloff/doclampweight/strict_parity/dbse_lstsq).
@@ -544,7 +503,7 @@ class FaceDeformNode:
         messages: List[str] = []
         mesh_in, rest_rig, deform_rig = inputs[0], inputs[1], inputs[2]
         blends = list(inputs[3:])
-        dev = _device_of(deformer) if deformer is not None else self.device
+        dev = deformer.device if deformer is not None else self.device
 
         # validation (:228-234)
         if rest_rig.num_points != deform_rig.num_points:
@@ -696,10 +655,9 @@ class FaceDeformNode:
                     confidence = None
             fit_key = (
                 rest_rig.pos_id, deform_rig.pos_id, cfg.solve_view(),
-                # PU consumes only lam (auto per-patch radii): qcoef/zcoef/
-                # radius slider changes must not re-run a PU fit
-                (float(params.lam),) if cfg.solver == "pu"
-                else _fit_params_key(params),
+                # the params the route solves with: slider changes of any
+                # other param must not re-run the fit
+                fit_params_key(cfg, params),
                 # confidence edits bump the rig's attr id -> refit; rigs
                 # without the attr keep a constant key term
                 rest_rig.attr_id if confidence is not None else None,
@@ -707,49 +665,21 @@ class FaceDeformNode:
             )
         if fit_key != self._fit_key:
             with stage("solve", times):
-                if cfg.solver == "pu":
-                    # partition-of-unity model (ops/pu.py): any-N rigs, node
-                    # semantics through the Deformer-compatible facade
-                    from facedeform_tpu_torch.ops.pu import PUNodeDeformer
-
-                    self._deformer = PUNodeDeformer.fit(
-                        rest_rig.points, deform_rig.points, cfg, params,
-                        confidence=confidence, device=dev, plans=self._pu_plans,
-                    )
+                # the plan key is the fit key minus the deformed rig: a
+                # pose-only change (marker drag, next tracked frame) keeps
+                # it, and the route's plan re-solves the pose
+                plan_key = fit_key[:1] + fit_key[2:]
+                if self._plan is not None and plan_key == self._plan_key:
+                    # the plan's cfg/params carry fit-time eval toggles:
+                    # refresh to this cook's
+                    self._deformer = dataclasses.replace(
+                        self._plan.refit(deform_rig.points), cfg=cfg, params=params)
                 else:
-                    from facedeform_tpu_torch.deformer import FitPlan
-
-                    # the factor key is the fit key minus the deformed rig:
-                    # a pose-only change (marker drag, next tracked frame)
-                    # keeps it, and the cached FitPlan's O(n^2) refit
-                    # replaces the O(n^3) refactorization
-                    factor_key = (
-                        rest_rig.pos_id, cfg.solve_view(),
-                        _fit_params_key(params),
-                        rest_rig.attr_id if confidence is not None else None,
-                        str(dev),
+                    self._deformer, self._plan = fit_route(
+                        rest_rig.points, deform_rig.points, cfg, params,
+                        confidence=confidence, device=dev,
                     )
-                    if FitPlan.supports(cfg, rest_rig.num_points):
-                        if factor_key == self._fit_plan_key:
-                            # the plan's cfg/params carry fit-time eval
-                            # toggles: refresh to this cook's
-                            self._deformer = dataclasses.replace(
-                                self._fit_plan.refit(deform_rig.points),
-                                cfg=cfg, params=params,
-                            )
-                        else:
-                            self._deformer, self._fit_plan = Deformer.fit_with_plan(
-                                rest_rig.points, deform_rig.points, cfg, params,
-                                confidence=confidence, device=dev,
-                            )
-                            self._fit_plan_key = factor_key
-                    else:
-                        self._fit_plan = None
-                        self._fit_plan_key = None
-                        self._deformer = Deformer.fit(
-                            rest_rig.points, deform_rig.points, cfg, params,
-                            confidence=confidence, device=dev,
-                        )
+                    self._plan_key = plan_key
             self._fit_key = fit_key
         elif (
             self._deformer.cfg != cfg
@@ -792,8 +722,6 @@ class FaceDeformNode:
                 )
 
         # ------------------------------------------------------- eval loop
-        from facedeform_tpu_torch.ops.pu import PUNodeDeformer as _PUND
-
         rest_pts = self._on_device("points", mesh_in.pos_id, mesh_in.points, dev)
         dist2 = None
         if capture is not None:
@@ -805,22 +733,15 @@ class FaceDeformNode:
                 mesh_in, deformer, rest_pts, dist2, frame, mask_t
             )
             with profiling.span("eval.apply"):
-                if isinstance(deformer, _PUND):
-                    # plan keyed on the mesh positions' data id: no per-cook
-                    # content hash of the full point buffer, and a pose-only
-                    # refit keeps it
-                    new_pts, falloff = deformer.apply(
-                        rest_pts, dist2=dist2, frame=frame,
-                        group_mask=mask_t, backend=backend,
-                        plan_key=(mesh_in.pos_id, out.num_points),
-                    )
-                else:
-                    new_pts, falloff = deformer.apply(
-                        rest_pts, dist2=dist2, frame=frame,
-                        group_mask=mask_t, backend=backend,
-                    )
+                # the point set keyed by the mesh positions' data id: the PU
+                # route's eval plan needs no per-cook content hash of the
+                # full point buffer, and a pose-only refit keeps it
+                new_pts, falloff = deformer.apply(
+                    rest_pts, dist2=dist2, frame=frame, group_mask=mask_t,
+                    backend=backend, points_key=(mesh_in.pos_id, out.num_points),
+                )
             with profiling.span("eval.falloff_copy"):
-                falloff_host = _host(falloff)
+                falloff_host = host_f32(falloff)
         self.last_backend = backend
         out.set_attr("fd_falloff", falloff_host)
 
@@ -875,7 +796,7 @@ class FaceDeformNode:
                             # (already gated) eval output
                             morphed = torch.where(mask_t[:, None], morphed, new_pts)
                         new_pts = morphed
-                        weights_out = _host(w)
+                        weights_out = host_f32(w)
                     out.detail_attrs["weights"] = weights_out
 
         # -------------------------------------------------------- psd pass
@@ -1037,7 +958,7 @@ class FaceDeformNode:
                         kinds=transport_kinds, f_map=f_map,
                     )
                 for name, arr in moved.items():
-                    out.set_attr(name, _host(arr))
+                    out.set_attr(name, host_f32(arr))
                     transported_names.append(name)
         if output_stretch:
             if stretch_sig is None and not hasattr(deformer, "principal_stretches"):
@@ -1051,12 +972,12 @@ class FaceDeformNode:
                         stretch_sig = deformer.principal_stretches(
                             rest_pts, falloff, frame=frame, f_map=f_map,
                         )
-                    sig = _host(stretch_sig)
+                    sig = host_f32(stretch_sig)
                 out.set_attr("fd_stretch", sig[:, 0])
                 out.set_attr("fd_compress", sig[:, 2])
                 transported_names += ["fd_stretch", "fd_compress"]
         with stage("output", times):
-            out.set_points(_host(new_pts))   # the cook's one (V, 3) host copy
+            out.set_points(host_f32(new_pts))   # the cook's one (V, 3) host copy
         # ------------------------------------------- geometric normals
         # on the FINAL positions (after the morph pass), so unlike the
         # analytic transport it reflects everything written
@@ -1091,15 +1012,12 @@ class FaceDeformNode:
                             s_out.attr("tangentv"),
                             s_out.attr("N"),
                         )
-                    if isinstance(deformer, _PUND):
-                        s_pts, s_w = deformer.apply(
-                            s_out.points, frame=s_frame,
-                            plan_key=(sec.pos_id, s_out.num_points),
-                        )
-                    else:
-                        s_pts, s_w = deformer.apply(s_out.points, frame=s_frame)
-                    s_out.set_points(_host(s_pts))
-                    s_out.set_attr("fd_falloff", _host(s_w))
+                    s_pts, s_w = deformer.apply(
+                        s_out.points, frame=s_frame,
+                        points_key=(sec.pos_id, s_out.num_points),
+                    )
+                    s_out.set_points(host_f32(s_pts))
+                    s_out.set_attr("fd_falloff", host_f32(s_w))
                     if (recompute_normals and s_out.faces is not None
                             and len(s_out.faces)):
                         from facedeform_tpu_torch.geometry.topology import vertex_normals
@@ -1123,7 +1041,7 @@ class FaceDeformNode:
         from facedeform_tpu_torch.utils.precision import highest_precision
 
         feat, r_q = psd_ops.pose_feature(inputs[1].points, inputs[2].points, psd.align)
-        w_psd = _host(psd_ops.psd_weights(psd.model, feat, psd.kernel, psd.normalize))
+        w_psd = host_f32(psd_ops.psd_weights(psd.model, feat, psd.kernel, psd.normalize))
         delta = psd_ops.psd_delta(psd.model, feat, psd.kernel, psd.normalize)
         delta = delta.to(new_pts.device)
         if r_q is not None:

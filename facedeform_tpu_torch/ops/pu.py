@@ -43,6 +43,7 @@ from facedeform_tpu_torch.ops.kernels import apply_kernel, phi_prime_s
 from facedeform_tpu_torch.ops.precise_eval import GROWING_KERNELS
 from facedeform_tpu_torch.ops.solve import SolveReport, lu_solve_refined_against_df
 from facedeform_tpu_torch.utils import profiling
+from facedeform_tpu_torch.utils.profiling import host_f32
 from facedeform_tpu_torch.utils.precision import highest_precision
 
 # Bytes of device memory per (P + m)^2 system entry while a chunk of
@@ -59,8 +60,9 @@ _FIT_BYTES_PER_ENTRY = 56
 pu_fit_budget = 16e9
 
 # Counters (utils/profiling.py): patch sets built (build_patches), eval
-# plans built (plan_eval / plan_eval_tiles through the facades) and eval
-# plans the node route found in its cache (PUNodeDeformer.apply).
+# plans built (plan_eval / plan_eval_tiles through PUDeformer.make_plan)
+# and eval plans found in the cache under a caller's point-set key (the
+# node's mesh data id).
 for _name in ("pu.patch_sets", "pu.plans", "pu.plan_hits"):
     profiling.count(_name, 0)
 
@@ -277,14 +279,6 @@ def _lru_put(cache: dict, key, val, cap: int = 8) -> None:
     cache[key] = val
 
 
-def _host(a) -> np.ndarray:
-    """f32 numpy copy of an array or tensor (on any device; a card's copy
-    is counted, utils/profiling.to_host)."""
-    if isinstance(a, torch.Tensor):
-        a = profiling.to_host(a).numpy()
-    return np.asarray(a, np.float32)
-
-
 # ------------------------------------------------------------ model + solve
 class PUModel(NamedTuple):
     """Fitted PU model, every tensor on one device (kernel/term are passed
@@ -488,8 +482,8 @@ def fit_pu(
     once.  mesh= (sharding across devices) raises: slice H.
     """
     _no_mesh(mesh, "fit_pu")
-    rest_np = _host(rest_ctrl)
-    delta = _host(deformed_ctrl) - rest_np
+    rest_np = host_f32(rest_ctrl)
+    delta = host_f32(deformed_ctrl) - rest_np
     if patches is None:
         patches = build_patches(rest_np, patch_size, overlap)
     rhs_pad = delta[np.maximum(patches.idx, 0)]       # (K, P, 3)
@@ -522,8 +516,8 @@ def fit_pu_frames(
     (static geometry shared by reference) and one aggregate SolveReport.
     """
     _no_mesh(mesh, "fit_pu_frames")
-    rest_np = _host(rest_ctrl)
-    frames = _host(deformed_frames)
+    rest_np = host_f32(rest_ctrl)
+    frames = host_f32(deformed_frames)
     if frames.ndim != 3 or frames.shape[1:] != rest_np.shape:
         raise ValueError(
             f"deformed_frames {frames.shape} must be (F,) + rest "
@@ -734,20 +728,17 @@ def jacobian_pu(
 _BACKENDS = ("auto", "plain", "cuda")
 
 
-def _build_plan(build):
-    """build() of an eval plan (plan_eval or cuda_pu.plan_eval_tiles): a
-    span, pu.plan, counted in pu.plans."""
-    profiling.count("pu.plans")
-    with profiling.span("pu.plan"):
-        return build()
-
-
 class PUDeformer:
     """Solve-once / eval-many facade over fit_pu + the PU evals.
 
-    Eval plans are cached by a full content digest of the query buffer
-    (bounded LRU, 8 entries): a prefix key would reuse a stale plan for a
-    buffer that differs only past the prefix.
+    Eval plans live in `plans`, a bounded LRU (8 entries: a node cook
+    serves its mesh and its secondary meshes off one deformer, so one slot
+    would rebuild every mesh's host plan each cook) keyed on (patch
+    digest, point-set key, route).  The point-set key is the caller's id
+    for the points or else a full content digest of their host bytes (a
+    prefix key would reuse a stale plan for a buffer that differs only
+    past the prefix).  Every frame of a PUSeqDeformer, and every refit of
+    a PUFitPlan, shares one such cache.
     """
 
     def __init__(self, model: PUModel, patches: PUPatches,
@@ -758,7 +749,7 @@ class PUDeformer:
         self.term = PolyTerm(term)
         self.auto_eps = auto_eps
         self.report: Optional[SolveReport] = None
-        self._plan_cache: dict = {}
+        self.plans: dict = {}
         self.plan_digest = patch_digest(patches)
 
     @property
@@ -771,7 +762,7 @@ class PUDeformer:
             patch_size=192, overlap=1.3, mesh=None,
             confidence=None, device="cuda") -> "PUDeformer":
         _no_mesh(mesh, "PUDeformer.fit")
-        patches = build_patches(_host(rest_ctrl), patch_size, overlap)
+        patches = build_patches(host_f32(rest_ctrl), patch_size, overlap)
         model, report = fit_pu(
             rest_ctrl, deformed_ctrl, kernel, term, eps, lam,
             patches=patches, confidence=confidence, device=device,
@@ -808,7 +799,7 @@ class PUDeformer:
         Passing a plan skips the content-digest lookup, which needs the
         points' host bytes; per-frame callers build the plan once.
         """
-        from facedeform_tpu_torch.ops.cuda_pu import PUTilePlan, plan_eval_tiles
+        from facedeform_tpu_torch.ops.cuda_pu import PUTilePlan
 
         if precise is None:
             precise = not self.auto_eps
@@ -828,25 +819,17 @@ class PUDeformer:
         if isinstance(plan, PUEvalPlan):
             return self._run_plain(points, plan, precise)
 
-        # No plan: route first, then build/cache only the plan that path needs.
-        use_tiles = self._use_tiles(backend, precise)
-        points_np = _host(points)
-        if use_tiles:
-            tplan = self._cached_plan(
-                points_np, "tiles", lambda: plan_eval_tiles(self.patches, points_np))
-            return self._run_tiles(points, tplan)
-        eplan = self._cached_plan(
-            points_np, "plain", lambda: plan_eval(self.patches, points_np))
-        return self._run_plain(points, eplan, precise)
+        # No plan: route first, then look up or build only the plan that path needs.
+        tiles = self._use_tiles(backend, precise)
+        plan = self._plan(points, tiles)
+        return self._run_tiles(points, plan) if tiles else self._run_plain(points, plan, precise)
 
     def jacobian(self, points, plan=None) -> torch.Tensor:
         """Spatial Jacobian of the PU displacement field, (V, 3, 3), by the
         plain tile composition (jacobian_pu); takes/caches a plan_eval()
         PUEvalPlan (tile plans drive the value kernel only)."""
         if plan is None:
-            points_np = _host(points)
-            plan = self._cached_plan(
-                points_np, "plain", lambda: plan_eval(self.patches, points_np))
+            plan = self._plan(points, tiles=False)
         elif not isinstance(plan, PUEvalPlan):
             raise ValueError("jacobian needs a plan_eval() PUEvalPlan")
         return jacobian_pu(
@@ -854,13 +837,11 @@ class PUDeformer:
             plan.forced, self.kernel, self.term, plan.num_points,
         )
 
-    def make_plan(self, points_np: np.ndarray, backend: str = "auto"):
-        """Build the plan displacement()'s route would use for these points
-        (tile plan for the f32 kernel route, plain plan otherwise), for
-        callers that key plans themselves.  `backend` mirrors
-        displacement()'s forcing."""
-        from facedeform_tpu_torch.ops.cuda_pu import plan_eval_tiles
-
+    def make_plan(self, points, backend: str = "auto"):
+        """The plan displacement()'s route takes for these points (a tile
+        plan for the f32 kernel route, a plain plan otherwise), from the
+        cache or built into it.  `backend` mirrors displacement()'s
+        forcing."""
         precise = not self.auto_eps
         if backend == "cuda" and precise:
             raise ValueError(
@@ -868,21 +849,34 @@ class PUDeformer:
                 "forced-global-eps fit evaluates through the float64 plain "
                 "tiles — use backend='plain' or refit with eps='auto'"
             )
-        points_np = _host(points_np)
-        if self._use_tiles(backend, precise):
-            return _build_plan(lambda: plan_eval_tiles(self.patches, points_np))
-        return _build_plan(lambda: plan_eval(self.patches, points_np))
+        return self._plan(points, self._use_tiles(backend, precise))
 
-    def _cached_plan(self, points_np: np.ndarray, tag: str, build):
-        key = (
-            points_np.shape,
-            hashlib.blake2b(points_np.tobytes(), digest_size=16).digest(),
-            tag,
-        )
-        plan = _lru_hit(self._plan_cache, key)
-        if plan is None:
-            plan = _build_plan(build)
-            _lru_put(self._plan_cache, key, plan)
+    def _plan(self, points, tiles: bool, points_key=None):
+        """The one lookup-or-build of an eval plan.  points_key is the
+        caller's id for the point set (PUNodeDeformer.apply passes the
+        node's mesh data id), so a hit needs no host copy of the points;
+        None keys on a digest of their bytes.  A build is a span, pu.plan,
+        counted in pu.plans; a hit under the caller's key counts in
+        pu.plan_hits."""
+        from facedeform_tpu_torch.ops.cuda_pu import plan_eval_tiles
+
+        keyed, points_np = points_key is not None, None
+        if not keyed:
+            points_np = host_f32(points)
+            points_key = (points_np.shape,
+                          hashlib.blake2b(points_np.tobytes(), digest_size=16).digest())
+        key = (self.plan_digest, points_key, "tiles" if tiles else "plain")
+        plan = _lru_hit(self.plans, key)
+        if plan is not None:
+            if keyed:
+                profiling.count("pu.plan_hits")
+            return plan
+        if points_np is None:
+            points_np = host_f32(points)
+        profiling.count("pu.plans")
+        with profiling.span("pu.plan"):
+            plan = (plan_eval_tiles if tiles else plan_eval)(self.patches, points_np)
+        _lru_put(self.plans, key, plan)
         return plan
 
     def _run_tiles(self, points, tplan):
@@ -913,10 +907,8 @@ class PUSeqDeformer:
         self.puds = [PUDeformer(m, patches, kernel, term, auto_eps) for m in models]
         # aggregate SolveReport: set by fit(); None when built directly
         self.report: Optional[SolveReport] = None
-        # one plan cache across all frames
-        shared: dict = {}
-        for p in self.puds:
-            p._plan_cache = shared
+        for p in self.puds[1:]:
+            p.plans = self.puds[0].plans   # one plan cache across all frames
 
     @property
     def num_frames(self) -> int:
@@ -928,7 +920,7 @@ class PUSeqDeformer:
             patch_size=192, overlap=1.3, mesh=None,
             confidence=None, device="cuda") -> "PUSeqDeformer":
         _no_mesh(mesh, "PUSeqDeformer.fit")
-        patches = build_patches(_host(rest_ctrl), patch_size, overlap)
+        patches = build_patches(host_f32(rest_ctrl), patch_size, overlap)
         models, report = fit_pu_frames(
             rest_ctrl, deformed_frames, kernel, term, eps, lam,
             patches=patches, confidence=confidence, device=device,
@@ -947,21 +939,15 @@ class PUSeqDeformer:
         frame evaluates through the plain tiles (float64 for forced-eps
         growing kernels).  mesh= raises: slice H.
         """
-        from facedeform_tpu_torch.ops.cuda_pu import (
-            evaluate_pu_tiles_frames, plan_eval_tiles,
-        )
+        from facedeform_tpu_torch.ops.cuda_pu import PUTilePlan, evaluate_pu_tiles_frames
 
         _no_mesh(mesh, "PUSeqDeformer.displacement_frames")
-        points_np = _host(points)
         pud0 = self.puds[0]
-        if pud0._use_tiles("auto", precise=not self.auto_eps):
-            tplan = pud0._cached_plan(
-                points_np, "tiles", lambda: plan_eval_tiles(self.patches, points_np))
+        plan = pud0.make_plan(points)
+        if isinstance(plan, PUTilePlan):
             return evaluate_pu_tiles_frames(
-                tuple(p.model for p in self.puds), pud0._points(points), tplan, self.kernel)
-        eplan = pud0._cached_plan(
-            points_np, "plain", lambda: plan_eval(self.patches, points_np))
-        return torch.stack([p.displacement(points, plan=eplan) for p in self.puds])
+                tuple(p.model for p in self.puds), pud0._points(points), plan, self.kernel)
+        return torch.stack([p.displacement(points, plan=plan) for p in self.puds])
 
     def apply_seq(self, points, dist2=None, gate=None, cfg=None,
                   params=None, frame=None,
@@ -1014,19 +1000,16 @@ class PUNodeDeformer:
     """Deformer-compatible facade for the node path (cfg.solver == "pu").
 
     Exposes the contract FaceDeformNode drives (report, cfg, params,
-    apply(points, dist2, frame, group_mask, backend), transform_attrs,
-    principal_stretches): the PU displacement field composed with the
-    node's falloff, tangent projection and group gate exactly as
-    deformer.apply_fn composes the global model's.
+    device, autotune_backends, apply(points, dist2, frame, group_mask,
+    backend, points_key), transform_attrs, principal_stretches): the PU
+    displacement field composed with the node's falloff, tangent
+    projection and group gate exactly as deformer.apply_fn composes the
+    global model's.
     """
 
     pud: PUDeformer
     cfg: object
     params: object
-    # mutable plan cache (plan key -> eval plan), handed from fit to fit by
-    # the node (fit(plans=)); compare/repr excluded so the frozen dataclass
-    # stays value-like
-    _plans: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def report(self):
@@ -1036,21 +1019,14 @@ class PUNodeDeformer:
     def device(self) -> torch.device:
         return self.pud.device
 
-    def _plan_get(self, key):
-        return _lru_hit(self._plans, key)
-
-    def _plan_put(self, key, plan, cap: int = 8) -> None:
-        """Bounded LRU insert.  A cook serves the main mesh and its
-        secondary meshes off one deformer, so a single slot would rebuild
-        every mesh's host plan each cook: keep the last `cap` plans."""
-        _lru_put(self._plans, key, plan, cap)
+    def autotune_backends(self, num_points: int) -> tuple:
+        """The node's autotune has nothing to time: PU picks its own (tile
+        kernel) path."""
+        return ("auto",)
 
     @classmethod
     def fit(cls, rest_ctrl, deformed_ctrl, cfg, params, mesh_devices=None,
-            confidence=None, device="cuda", plans=None) -> "PUNodeDeformer":
-        """plans: an earlier fit's plan cache to keep using.  Its keys hold
-        the patch geometry's digest, so a pose-only refit (same rest rig,
-        bit-equal patches) reuses its plans and any other refit misses."""
+            confidence=None, device="cuda") -> "PUNodeDeformer":
         from facedeform_tpu_torch.utils import errors
 
         _no_mesh(mesh_devices, "PUNodeDeformer.fit")
@@ -1061,17 +1037,16 @@ class PUNodeDeformer:
             confidence=confidence, device=device,
         )
         errors.check_solve(pud.report)
-        return cls(pud=pud, cfg=cfg, params=params, _plans={} if plans is None else plans)
+        return cls(pud=pud, cfg=cfg, params=params)
 
     def apply(self, points, dist2=None, frame=None, group_mask=None,
-              backend: str = "auto", plan_key=None, mesh_devices=None):
+              backend: str = "auto", points_key=None, mesh_devices=None):
         """((V, 3) positions, (V,) falloff) on the model's device.  backend
         "plain"/"cuda" force PUDeformer's path (each with its own plan);
         any other name ("auto", the global family's "cuda_culled", ...)
-        takes the auto route.  plan_key keys the eval plan (the node passes
-        the mesh's position data id) instead of a digest of the points'
-        bytes, together with the patch geometry's digest and the route; a
-        hit counts in pu.plan_hits."""
+        takes the auto route.  points_key keys the eval plan (the node
+        passes the mesh's position data id) instead of a digest of the
+        points' bytes."""
         from facedeform_tpu_torch.ops.falloff import falloff_weight
         from facedeform_tpu_torch.ops.tangent import project_to_tangents
 
@@ -1080,18 +1055,10 @@ class PUNodeDeformer:
         dev = self.device
         pts = torch.as_tensor(points, dtype=torch.float32, device=dev)
         pu_backend = backend if backend in ("plain", "cuda") else "auto"
-        plan = None
-        if plan_key is not None:
-            # the route, not the backend's name: "auto" builds a tile plan
-            # on the card and a plain one on the CPU
-            tiles = self.pud._use_tiles(pu_backend, precise=not self.pud.auto_eps)
-            key = (self.pud.plan_digest, plan_key, tiles)
-            plan = self._plan_get(key)
-            if plan is None:
-                plan = self.pud.make_plan(_host(points), backend=pu_backend)
-                self._plan_put(key, plan)
-            else:
-                profiling.count("pu.plan_hits")
+        # the route, not the backend's name: "auto" takes a tile plan on the
+        # card and a plain one on the CPU
+        tiles = self.pud._use_tiles(pu_backend, precise=not self.pud.auto_eps)
+        plan = self.pud._plan(points, tiles, points_key)
         disp = self.pud.displacement(pts, plan=plan, backend=pu_backend)
         if self.cfg.tangent and frame is not None:
             disp = project_to_tangents(
@@ -1131,3 +1098,27 @@ class PUNodeDeformer:
         if f_map is not None:
             f = f_map(f)
         return principal_stretches(f)
+
+
+@dataclasses.dataclass(frozen=True)
+class PUFitPlan:
+    """The PU route's pose-independent half (deformer.fit_route): the rest
+    rig and fit settings, and the eval plan cache every refit's deformer
+    shares.  Its keys hold the patch geometry's digest, so a new pose of
+    the same rest rig finds its mesh's plan.  The patches and the patch
+    factorizations are still rebuilt for every pose."""
+
+    rest_ctrl: np.ndarray
+    cfg: object
+    params: object
+    confidence: object
+    device: object
+    plans: dict = dataclasses.field(default_factory=dict, init=False, compare=False,
+                                    repr=False)
+
+    def refit(self, deformed_ctrl) -> PUNodeDeformer:
+        """PUNodeDeformer.fit of a new pose, its eval plans kept here."""
+        d = PUNodeDeformer.fit(self.rest_ctrl, deformed_ctrl, self.cfg, self.params,
+                               confidence=self.confidence, device=self.device)
+        d.pud.plans = self.plans
+        return d

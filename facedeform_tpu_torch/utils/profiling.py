@@ -19,11 +19,11 @@ facedeform_tpu/utils/profiling.py).
     counters; they always count (kernel launches as launches.<kernel>).
     Each module registers its counters when it is imported (count(name,
     0)), and counter() refuses a name never registered;
-  * to_host, to_device, blocking — every host/device crossing of the
-    program goes through these: each counts sync.count and sync.wait_ns
-    (the time the host blocked) and the bytes it moves (copy.dtoh_bytes,
-    copy.htod_bytes), only when the data crosses devices.  A CUDA sync
-    debug mode is suspended inside them alone, so
+  * to_host, host_f32, to_device, blocking — every host/device crossing
+    of the program goes through these: each counts sync.count and
+    sync.wait_ns (the time the host blocked) and the bytes it moves
+    (copy.dtoh_bytes, copy.htod_bytes), only when the data crosses
+    devices.  A CUDA sync debug mode is suspended inside them alone, so
     torch.cuda.set_sync_debug_mode("error") raises on any other sync.
     The fences of stage() and sync() count as fence.count and
     fence.wait_ns, never as syncs;
@@ -44,6 +44,7 @@ import statistics
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
 #: spans kept in memory, the newest (about a thousand cooks' worth)
@@ -262,6 +263,14 @@ def to_host(t: torch.Tensor) -> torch.Tensor:
         out = t.cpu()
     count("copy.dtoh_bytes", out.numel() * out.element_size())
     return out
+
+
+def host_f32(a) -> np.ndarray:
+    """A float32 numpy copy of a tensor (on any device, through to_host) or
+    of an array; a float32 array as it is."""
+    if isinstance(a, torch.Tensor):
+        a = to_host(a).numpy()
+    return np.asarray(a, np.float32)
 
 
 def to_device(x, device, dtype=None) -> torch.Tensor:

@@ -7,7 +7,7 @@ port's cook_sop(node, device="cpu") must write positions within 5e-5 of
 the motion scale (BASELINE.md's budget) of the JAX adapter's, fd_falloff
 within 1e-6, the same attributes, warnings and errors.  Two deliberate
 differences are shown: the regress-mode fit cache is keyed on the
-unclamped params through the node's _fit_params_key (the JAX adapter
+unclamped params through deformer.fit_params_key (the JAX adapter
 clamps first), and an out-of-range menu index raises hou.NodeError (the
 JAX adapter's _checked_index names `hou` without importing it, so it
 raises NameError).
@@ -30,7 +30,7 @@ from facedeform_tpu.ops import psd as jpsd  # noqa: E402
 from facedeform_tpu.utils import checkpoint as jck  # noqa: E402
 from facedeform_tpu_torch import houdini as th  # noqa: E402
 from facedeform_tpu_torch.geometry.mesh import Mesh as TMesh  # noqa: E402
-from facedeform_tpu_torch.node import _fit_params_key  # noqa: E402
+from facedeform_tpu_torch.deformer import fit_params_key  # noqa: E402
 
 POS_RTOL = 5e-5      # of the motion scale (BASELINE.md)
 FALLOFF_TOL = 1e-6
@@ -283,7 +283,7 @@ def test_cook_sop_psd_checkpoint_matches_jax(tmp_path):
 
 
 def test_regress_cache_keys_on_unclamped_params():
-    """The reduce-fit cache key holds _fit_params_key(params) of the
+    """The reduce-fit cache key holds fit_params_key(cfg, params) of the
     unclamped params (plain floats, the floors applied inside it): a
     lambda under the 0.01 floor and an eval-only slider keep the cached
     fit; a fit-relevant change refits."""
@@ -294,7 +294,7 @@ def test_regress_cache_keys_on_unclamped_params():
     state = th._NODE_STATE[node.path()]
     key, fitted = state["reduce_fit"]
     cfg, params, _ = th.config_from_node(node)
-    assert key[4] == _fit_params_key(params)
+    assert key[4] == fit_params_key(cfg, params)
     assert all(type(v) is float for v in key[4])
     assert key[4][3] == 0.01
     node._parms["lambda"] = 0.005          # floored to the same 0.01

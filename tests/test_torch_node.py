@@ -23,6 +23,7 @@ from facedeform_tpu_torch import (
 from facedeform_tpu_torch.geometry.topology import compute_tangent_frame as t_frame
 from facedeform_tpu_torch.ops import dbse
 from facedeform_tpu_torch.ops import psd as tpsd
+from facedeform_tpu_torch.utils import profiling
 from facedeform_tpu_torch.utils.profiling import StageTimes
 
 POS_RTOL = 5e-5       # of the motion scale (BASELINE.md)
@@ -386,7 +387,7 @@ def test_cache_reuse_and_drag_refit_matches_fresh_fit():
     times = StageTimes()
     node.cook([mesh, r0, r1], cfg, params, times=times)
     assert {"capture", "solve", "eval", "output"} <= set(times.ms)
-    deformer, capkey, plan = node._deformer, node._capture_key, node._fit_plan
+    deformer, capkey, plan = node._deformer, node._capture_key, node._plan
     times2 = StageTimes()
     node.cook([mesh, r0, r1], cfg, params, times=times2)
     assert node._deformer is deformer and node._capture_key == capkey
@@ -403,7 +404,7 @@ def test_cache_reuse_and_drag_refit_matches_fresh_fit():
     for step in range(3):
         pose = _rig_pose(r0.points, amp=0.2 + 0.05 * step, dirn=(0.1 * step, 1.0, 0.2))
         got = node.cook([mesh, r0, Mesh(points=pose)], cfg, params).mesh.points
-        assert node._fit_plan is plan
+        assert node._plan is plan
         fresh = FaceDeformNode(device="cpu").cook([mesh, r0, Mesh(points=pose)], cfg,
                                                   params).mesh.points
         np.testing.assert_array_equal(got, fresh)
@@ -414,6 +415,56 @@ def test_cache_reuse_and_drag_refit_matches_fresh_fit():
     # maxedges recaptures
     node.cook([mesh, r0, r1], cfg, params._replace(maxedges=6))
     assert node._capture_key != capkey
+
+
+ROUTES = {"dense": {}, "krylov": dict(solver="krylov"), "pu": dict(solver="pu")}
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_route_seam_keeps_what_each_route_keeps(route):
+    """Poses A, B, A through one node: each cook equals a fresh node's cook
+    of its pose bit for bit, and the cooks' spans and counters show what
+    the route's plan (deformer.fit_route) keeps.  The dense route factors
+    once and refits the later poses; the PU route rebuilds its patches and
+    factors every pose and builds its eval plan for the first pose only;
+    the Krylov route has no plan and fits every pose."""
+    mesh, r0, _ = _scene(_Side(False))
+    cfg, params = DeformConfig(**ROUTES[route]), DeformParams()
+    a = Mesh(points=_rig_pose(r0.points))
+    b = Mesh(points=_rig_pose(r0.points, amp=0.3, dirn=(0.2, 1.0, 0.1)))
+    fresh = [FaceDeformNode(device="cpu").cook([mesh, r0, p], cfg, params).mesh.points
+             for p in (a, b, a)]
+    node = FaceDeformNode(device="cpu")
+    first = profiling._REC.next_id
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = [node.cook([mesh, r0, p], cfg, params).mesh.points for p in (a, b, a)]
+    for g, f in zip(got, fresh):
+        np.testing.assert_array_equal(g, f)
+    recorded = [s for s in profiling.spans() if s.id >= first]
+    roots = [s for s in recorded if s.parent is None]
+    assert [s.name for s in roots] == ["FaceDeformNode.cook"] * 3
+
+    def spans_named(name):
+        return [sum(s.name == name for s in recorded if s.request == r.request) for r in roots]
+
+    def moved(name):
+        return [r.counters.get(name, 0) for r in roots]
+
+    assert spans_named("solve") == [1, 1, 1]
+    if route == "dense":
+        assert type(node._plan).__name__ == "FitPlan"
+        assert spans_named("fit.factor") == [1, 0, 0]
+        assert spans_named("fit.refit") == [0, 1, 1]
+    elif route == "pu":
+        assert type(node._plan).__name__ == "PUFitPlan"
+        assert moved("pu.patch_sets") == [1, 1, 1]
+        assert all(n > 0 for n in spans_named("fit.factor"))
+        assert moved("pu.plans") == [1, 0, 0] and moved("pu.plan_hits") == [0, 1, 1]
+        assert spans_named("fit.refit") == [0, 0, 0]
+    else:
+        assert node._plan is None
+        assert all(n > 0 for n in moved("fit.gmres_restarts"))
+        assert spans_named("fit.refit") == [0, 0, 0]
 
 
 def test_node_passes_equal_their_ops():

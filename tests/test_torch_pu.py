@@ -454,7 +454,7 @@ def test_apply_seq_matches_jax():
     got_nt, _ = seq.apply_seq(q, d2, gate, DeformConfig(), prm, frame=frame)
     base, _ = seq.apply_seq(q, d2, gate, DeformConfig(), prm)
     np.testing.assert_array_equal(got_nt.numpy(), base.numpy())
-    assert len(seq.puds[0]._plan_cache) == 1 and seq.puds[2]._plan_cache is seq.puds[0]._plan_cache
+    assert len(seq.puds[0].plans) == 1 and seq.puds[2].plans is seq.puds[0].plans
 
 
 def test_seq_frames_equal_single_pose_models():
@@ -492,7 +492,7 @@ def test_plan_cache_not_fooled_by_prefix():
     q2[100:] += np.float32([5, 5, 5])          # same prefix, moved tail
     out1 = d.displacement(q1).numpy()
     out2 = d.displacement(q2).numpy()
-    assert len(d._plan_cache) == 2
+    assert len(d.plans) == 2
     fresh = pu.PUDeformer(d.model, d.patches, d.kernel, d.term)
     np.testing.assert_array_equal(out2, fresh.displacement(q2).numpy())
     assert np.abs(out1[:100] - out2[:100]).max() < 1e-6

@@ -236,14 +236,14 @@ def test_an_edited_rest_rig_or_a_new_mesh_rebuilds_the_plan():
     d = take.node._deformer
     pts = torch.as_tensor(scene.points)
     built = profiling.counter("pu.plans")
-    out = {b: d.apply(pts, backend=b, plan_key=("routes", len(pts)))[0]
+    out = {b: d.apply(pts, backend=b, points_key=("routes", len(pts)))[0]
            for b in ("plain", "cuda")}
     assert profiling.counter("pu.plans") - built == 2
     hits = profiling.counter("pu.plan_hits")
     for b in ("plain", "cuda"):
-        assert torch.equal(d.apply(pts, backend=b, plan_key=("routes", len(pts)))[0], out[b])
+        assert torch.equal(d.apply(pts, backend=b, points_key=("routes", len(pts)))[0], out[b])
     assert profiling.counter("pu.plan_hits") - hits == 2
-    kinds = {type(p) for k, p in d._plans.items() if k[1] == ("routes", len(pts))}
+    kinds = {type(p) for k, p in d.pud.plans.items() if k[1] == ("routes", len(pts))}
     assert kinds == {pu.PUEvalPlan, cuda_pu.PUTilePlan}
 
 
@@ -257,7 +257,7 @@ def test_the_plan_cache_stays_bounded_across_a_take_with_secondaries():
         res, n = take.cook(pose, secondary=secondary)
         assert len(res.secondary) == 2
         assert n["pu.plans"] == (3 if i == 0 else 2) and n["pu.plan_hits"] == (i > 0)
-        plans = take.node._deformer._plans
+        plans = take.node._deformer.pud.plans
         assert len(plans) <= 8
         assert any(k[1] == (take.mesh.pos_id, take.mesh.num_points) for k in plans)
     assert len(plans) == 8
