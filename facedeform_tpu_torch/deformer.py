@@ -88,8 +88,9 @@ def fit_route(rest_ctrl, deformed_ctrl, cfg: DeformConfig, params: DeformParams,
     """A cold fit on cfg's route: (deformer, plan), where plan.refit(pose)
     re-solves a new pose of the same rest rig, cfg and fit params, or plan
     is None where each pose is a cold fit.  Dense: Deformer.fit_with_plan
-    (one factorization).  PU: an ops.pu.PUFitPlan (its eval plans kept
-    across refits).  Krylov: Deformer.fit, no plan (matrix-free)."""
+    (one factorization).  PU: an ops.pu.PUFitPlan (its patches, their
+    factorizations and its eval plans kept across refits).  Krylov:
+    Deformer.fit, no plan (matrix-free)."""
     if cfg.solver == "pu":
         from facedeform_tpu_torch.ops.pu import PUFitPlan
 

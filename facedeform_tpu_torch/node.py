@@ -101,8 +101,8 @@ class FaceDeformNode:
         # on everything in the fit key EXCEPT the deformed rig: a marker
         # drag (new pose, same rest rig/params) re-solves through
         # plan.refit(), which keeps what the route can keep (the dense
-        # factorization, the PU eval plans); None where every pose is a
-        # cold fit.
+        # factorization; the PU patches, their factorizations and eval
+        # plans); None where every pose is a cold fit.
         self._plan = None
         self._plan_key: Optional[tuple] = None
         self._rest_key: Optional[int] = None

@@ -41,7 +41,7 @@ from facedeform_tpu_torch.config import PolyTerm, RBFKernel
 from facedeform_tpu_torch.ops.fit import confidence_clipped
 from facedeform_tpu_torch.ops.kernels import apply_kernel, phi_prime_s
 from facedeform_tpu_torch.ops.precise_eval import GROWING_KERNELS
-from facedeform_tpu_torch.ops.solve import SolveReport, lu_solve_refined_against_df
+from facedeform_tpu_torch.ops.solve import SolveReport, df_system, solve_df
 from facedeform_tpu_torch.utils import profiling
 from facedeform_tpu_torch.utils.profiling import host_f32
 from facedeform_tpu_torch.utils.precision import highest_precision
@@ -58,12 +58,18 @@ from facedeform_tpu_torch.utils.precision import highest_precision
 # (The JAX package budgets 2 GB of TPU HBM for ~6 f32 buffers per entry.)
 _FIT_BYTES_PER_ENTRY = 56
 pu_fit_budget = 16e9
+# Bytes per entry a PUFitPlan keeps between poses: the f32 LU and the
+# float64 system (12 B), and the f32 words (8 B more) where GMRES-IR reads
+# them.  It keeps them where all of them fit pu_fit_budget: a
+# 53,490-control rig's 512 patches of P + m = 644 take 2.55e9 B.
+_KEPT_BYTES_PER_ENTRY = 12
 
 # Counters (utils/profiling.py): patch sets built (build_patches), eval
-# plans built (plan_eval / plan_eval_tiles through PUDeformer.make_plan)
-# and eval plans found in the cache under a caller's point-set key (the
-# node's mesh data id).
-for _name in ("pu.patch_sets", "pu.plans", "pu.plan_hits"):
+# plans built (plan_eval / plan_eval_tiles through PUDeformer.make_plan),
+# eval plans found in the cache under a caller's point-set key (the
+# node's mesh data id) and PUFitPlan refits solved against kept patch
+# factorizations.
+for _name in ("pu.patch_sets", "pu.plans", "pu.plan_hits", "pu.fit_hits"):
     profiling.count(_name, 0)
 
 
@@ -352,20 +358,6 @@ def _assemble_patch(ctrl, valid, centers, kernel, term, eps, lam, tail_reg=1e-8)
     return a_hi, a_lo, local
 
 
-def _fit_chunk(ctrl, valid, centers, rhs, eps, kernel, term, lam, gmres_ir=True):
-    """Assembly + refined LU solve for a chunk of patches: ((x_hi, x_lo)
-    of shape (C, P + m, cols), per-patch SolveReport).  rhs may carry 3
-    columns (one pose) or 3F (a shot): the patch systems depend only on
-    the rest rig, so every frame shares one assembly and factorization.
-    A span, pu.assemble (the factorization is fit.factor)."""
-    with profiling.span("pu.assemble"):
-        a_hi, a_lo, _ = _assemble_patch(ctrl, valid, centers, kernel, term, eps, lam)
-        m = _n_poly(term)
-        b = torch.cat([rhs * valid[..., None],
-                       rhs.new_zeros((rhs.shape[0], m, rhs.shape[-1]))], dim=1)
-    return lu_solve_refined_against_df(a_hi, a_lo, b, gmres_ir=gmres_ir)
-
-
 def _nanmax0(x: torch.Tensor) -> torch.Tensor:
     """Max over axis 0 ignoring NaN (NaN where a column is all NaN)."""
     nan = torch.isnan(x)
@@ -373,19 +365,49 @@ def _nanmax0(x: torch.Tensor) -> torch.Tensor:
     return torch.where(nan.all(0), torch.full_like(out, float("nan")), out)
 
 
-@profiling.traced("pu.fit")
-def _fit_pu_rhs(rest_np, patches, rhs_pad, kernel, term, eps, lam, chunk, device,
-                confidence=None):
-    """Shared fit machinery: chunked batched solves on `device`; a span,
-    pu.fit.
+class PUFactorization(NamedTuple):
+    """The pose-independent half of a PU fit (factor_pu): the patches,
+    their geometry and fit settings on the device, and, where kept, every
+    chunk's patch systems as solve.DFSystem (the f32 LU, the float64
+    system the residuals read, the norms).  A pose enters only through
+    the right-hand side (solve_pu)."""
 
-    Returns (PUModel built from the first 3 solution columns, aggregate
-    SolveReport over every patch and column, raw (x_hi, x_lo) of shape
-    (K, P + m, C) for callers that carry extra frame columns).
-    """
+    patches: PUPatches
+    kernel: RBFKernel
+    term: PolyTerm
+    idx: torch.Tensor      # (K, P) int64 control rows, padding at row 0
+    ctrl: torch.Tensor     # (K, P, 3) padded patch controls
+    valid: torch.Tensor    # (K, P) f32 mask
+    centers: torch.Tensor  # (K, 3)
+    radii: torch.Tensor    # (K,)
+    eps: torch.Tensor      # (K,) per-patch kernel radius
+    lam: torch.Tensor      # (K, P) per-control ridge
+    chunk: int             # patches assembled and solved at once
+    gmres_ir: bool         # forced eps: GMRES-IR; "auto": stationary sweeps
+    systems: Optional[tuple]  # each chunk's DFSystem; None: built every solve
+
+    def chunks(self) -> list:
+        return [slice(s, s + self.chunk) for s in range(0, self.idx.shape[0], self.chunk)]
+
+
+def _chunk_system(fac: PUFactorization, sl: slice):
+    """A chunk of patches' saddle systems, assembled (a span, pu.assemble)
+    and factored (fit.factor)."""
+    with profiling.span("pu.assemble"):
+        a_hi, a_lo, _ = _assemble_patch(fac.ctrl[sl], fac.valid[sl], fac.centers[sl],
+                                        fac.kernel, fac.term, fac.eps[sl], fac.lam[sl])
+    return df_system(a_hi, a_lo, fac.gmres_ir)
+
+
+def factor_pu(rest_np, patches, kernel, term, eps, lam, chunk, device, confidence=None,
+              keep=False) -> PUFactorization:
+    """The pose-independent half of a PU fit on `device`.  keep=True also
+    assembles and factors every chunk's patch systems, where they fit
+    pu_fit_budget at _KEPT_BYTES_PER_ENTRY (their working set while
+    factored is one chunk's more); otherwise solve_pu builds each chunk's
+    in turn, as a one-pose fit wants."""
     k_, p_ = patches.idx.shape
     safe_idx = np.maximum(patches.idx, 0)
-    ctrl_pad = rest_np[safe_idx]                      # (K, P, 3)
     valid = (patches.idx >= 0).astype(np.float32)
     if confidence is not None:
         if float(lam) == 0.0:
@@ -410,27 +432,55 @@ def _fit_pu_rhs(rest_np, patches, rhs_pad, kernel, term, eps, lam, chunk, device
     # stationary refinement contracts; a forced global eps can reach cond
     # ~5e10 and keeps the Krylov (GMRES-IR) correction
     gmres_ir = not isinstance(eps, str)
+    entries = (p_ + _n_poly(term)) ** 2
     if chunk is None:
-        sys_bytes = (p_ + _n_poly(term)) ** 2 * _FIT_BYTES_PER_ENTRY
-        chunk = max(8, int(pu_fit_budget // sys_bytes))
+        chunk = max(8, int(pu_fit_budget // (entries * _FIT_BYTES_PER_ENTRY)))
 
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)  # noqa: E731
-    ctrl_d, valid_d, cen_d, rhs_d, eps_d, lam_d = map(
-        t, (ctrl_pad, valid, patches.centers, rhs_pad, eps_arr, lam_pat))
+    fac = PUFactorization(
+        patches, RBFKernel(kernel), PolyTerm(term), t(safe_idx).long(),
+        *map(t, (rest_np[safe_idx], valid, patches.centers, patches.radii, eps_arr, lam_pat)),
+        chunk=chunk, gmres_ir=gmres_ir, systems=None)
+    kept = k_ * entries * (_KEPT_BYTES_PER_ENTRY + (8 if gmres_ir else 0))
+    if keep and kept <= pu_fit_budget:
+        fac = fac._replace(systems=tuple(_chunk_system(fac, sl) for sl in fac.chunks()))
+    return fac
+
+
+def solve_pu(fac: PUFactorization, delta):
+    """A pose's half of a PU fit: the right-hand side gathered from the
+    controls' displacements on the device (delta (N, 3), or (F, N, 3) for
+    F frames in 3F columns), each chunk solved against its kept systems
+    (or systems built here) by 3 sweeps of float64-residual refinement.
+
+    Returns (PUModel built from the first 3 solution columns, aggregate
+    SolveReport over every patch and column, raw (x_hi, x_lo) of shape
+    (K, P + m, C) for callers that carry extra frame columns).
+    """
+    k_, p_ = fac.idx.shape
+    m = _n_poly(fac.term)
+    d = torch.as_tensor(np.ascontiguousarray(delta), device=fac.idx.device)
+    if d.ndim == 2:
+        rhs = d[fac.idx]                                  # (K, P, 3)
+    else:
+        # (F, K, P, 3) -> (K, P, F*3): frame f occupies columns 3f..3f+2
+        rhs = d[:, fac.idx].permute(1, 2, 0, 3).reshape(k_, p_, 3 * d.shape[0]).contiguous()
     outs = []
-    for start in range(0, k_, chunk):
-        sl = slice(start, start + chunk)
-        outs.append(_fit_chunk(ctrl_d[sl], valid_d[sl], cen_d[sl], rhs_d[sl],
-                               eps_d[sl], kernel, term, lam_d[sl], gmres_ir))
+    for i, sl in enumerate(fac.chunks()):
+        s = fac.systems[i] if fac.systems is not None else _chunk_system(fac, sl)
+        r = rhs[sl]
+        b = torch.cat([r * fac.valid[sl][..., None], r.new_zeros((r.shape[0], m, r.shape[-1]))],
+                      dim=1)
+        outs.append(solve_df(s, b, 3))
     x_hi = torch.cat([o[0][0] for o in outs])
     x_lo = torch.cat([o[0][1] for o in outs])
     rep = SolveReport(*(torch.cat(f) for f in zip(*[o[1] for o in outs])))
     c = lambda a: a.contiguous()  # noqa: E731
     model = PUModel(
-        centers=cen_d, radii=t(patches.radii), ctrl=ctrl_d, valid=valid_d,
+        centers=fac.centers, radii=fac.radii, ctrl=fac.ctrl, valid=fac.valid,
         w_hi=c(x_hi[:, :p_, :3]), w_lo=c(x_lo[:, :p_, :3]),
         poly_hi=c(x_hi[:, p_:, :3]), poly_lo=c(x_lo[:, p_:, :3]),
-        eps=eps_d,
+        eps=fac.eps,
     )
     # aggregate health across all patches (the leaves carry a patch axis)
     agg = SolveReport(
@@ -445,6 +495,15 @@ def _fit_pu_rhs(rest_np, patches, rhs_pad, kernel, term, eps, lam, chunk, device
         col_backward=_nanmax0(rep.col_backward),
     )
     return model, agg, (x_hi, x_lo)
+
+
+@profiling.traced("pu.fit")
+def _fit_pu_once(rest_np, patches, delta, kernel, term, eps, lam, chunk, device,
+                 confidence=None):
+    """A one-off fit: factor_pu and solve_pu in one span, pu.fit, each
+    chunk's systems built, solved and freed in turn."""
+    fac = factor_pu(rest_np, patches, kernel, term, eps, lam, chunk, device, confidence)
+    return solve_pu(fac, delta)
 
 
 def _no_mesh(mesh, what: str) -> None:
@@ -486,9 +545,8 @@ def fit_pu(
     delta = host_f32(deformed_ctrl) - rest_np
     if patches is None:
         patches = build_patches(rest_np, patch_size, overlap)
-    rhs_pad = delta[np.maximum(patches.idx, 0)]       # (K, P, 3)
-    model, agg, _ = _fit_pu_rhs(rest_np, patches, rhs_pad, kernel, term, eps, lam,
-                                chunk, device, confidence=confidence)
+    model, agg, _ = _fit_pu_once(rest_np, patches, delta, kernel, term, eps, lam,
+                                 chunk, device, confidence=confidence)
     return model, agg
 
 
@@ -526,15 +584,9 @@ def fit_pu_frames(
     f_n = frames.shape[0]
     if patches is None:
         patches = build_patches(rest_np, patch_size, overlap)
-    k_, p_ = patches.idx.shape
-    safe_idx = np.maximum(patches.idx, 0)
-    delta = frames - rest_np[None]                    # (F, N, 3)
-    # (F, K, P, 3) -> (K, P, F*3): frame f occupies columns 3f..3f+2
-    rhs_pad = np.ascontiguousarray(
-        delta[:, safe_idx].transpose(1, 2, 0, 3).reshape(k_, p_, 3 * f_n)
-    )
-    base, agg, (x_hi, x_lo) = _fit_pu_rhs(
-        rest_np, patches, rhs_pad, kernel, term, eps, lam, chunk, device,
+    p_ = patches.idx.shape[1]
+    base, agg, (x_hi, x_lo) = _fit_pu_once(
+        rest_np, patches, frames - rest_np[None], kernel, term, eps, lam, chunk, device,
         confidence=confidence,
     )
 
@@ -1027,17 +1079,10 @@ class PUNodeDeformer:
     @classmethod
     def fit(cls, rest_ctrl, deformed_ctrl, cfg, params, mesh_devices=None,
             confidence=None, device="cuda") -> "PUNodeDeformer":
-        from facedeform_tpu_torch.utils import errors
-
+        """A cold fit: the first pose of a new PUFitPlan."""
         _no_mesh(mesh_devices, "PUNodeDeformer.fit")
-        pud = PUDeformer.fit(
-            rest_ctrl, deformed_ctrl,
-            **node_fit_kwargs(cfg, params),  # the QNN lam = 0 rule
-            eps="auto",                      # per-patch shape parameter
-            confidence=confidence, device=device,
-        )
-        errors.check_solve(pud.report)
-        return cls(pud=pud, cfg=cfg, params=params)
+        return PUFitPlan(host_f32(rest_ctrl), cfg, params, confidence=confidence,
+                         device=device).refit(deformed_ctrl)
 
     def apply(self, points, dist2=None, frame=None, group_mask=None,
               backend: str = "auto", points_key=None, mesh_devices=None):
@@ -1100,13 +1145,17 @@ class PUNodeDeformer:
         return principal_stretches(f)
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass
 class PUFitPlan:
-    """The PU route's pose-independent half (deformer.fit_route): the rest
-    rig and fit settings, and the eval plan cache every refit's deformer
-    shares.  Its keys hold the patch geometry's digest, so a new pose of
-    the same rest rig finds its mesh's plan.  The patches and the patch
-    factorizations are still rebuilt for every pose."""
+    """The PU route's pose-independent half (deformer.fit_route), built by
+    its first fit: the rest rig's patches, their device geometry and,
+    where they fit pu_fit_budget, every patch's factorization
+    (`factors`, a PUFactorization), and the eval plan cache every refit's
+    deformer shares (its keys hold the patch geometry's digest, so a new
+    pose of the same rest rig finds its mesh's plan).  A refit gathers
+    its pose's right-hand side and solves it against what is kept, so it
+    equals a cold PUNodeDeformer.fit of the pose bit for bit; past the
+    budget each refit refactors the kept patches."""
 
     rest_ctrl: np.ndarray
     cfg: object
@@ -1115,10 +1164,31 @@ class PUFitPlan:
     device: object
     plans: dict = dataclasses.field(default_factory=dict, init=False, compare=False,
                                     repr=False)
+    factors: Optional[PUFactorization] = dataclasses.field(default=None, init=False,
+                                                           compare=False, repr=False)
 
     def refit(self, deformed_ctrl) -> PUNodeDeformer:
-        """PUNodeDeformer.fit of a new pose, its eval plans kept here."""
-        d = PUNodeDeformer.fit(self.rest_ctrl, deformed_ctrl, self.cfg, self.params,
-                               confidence=self.confidence, device=self.device)
-        d.pud.plans = self.plans
-        return d
+        """The node route's fit of a pose, its eval plans kept here: the
+        facade's patch defaults, eps "auto" (a per-patch shape parameter)
+        and the QNN lam = 0 rule (node_fit_kwargs).  The first builds the
+        patches (pu.patches) and factors; every later one counts in
+        pu.fit_hits where the factors were kept.  A span, pu.fit."""
+        from facedeform_tpu_torch.utils import errors
+
+        delta = host_f32(deformed_ctrl) - self.rest_ctrl
+        fac = self.factors
+        patches = build_patches(self.rest_ctrl) if fac is None else fac.patches
+        with profiling.span("pu.fit"):
+            if fac is None:
+                fac = self.factors = factor_pu(
+                    self.rest_ctrl, patches, **node_fit_kwargs(self.cfg, self.params),
+                    eps="auto", chunk=None, device=self.device,
+                    confidence=self.confidence, keep=True)
+            elif fac.systems is not None:
+                profiling.count("pu.fit_hits")
+            model, report, _ = solve_pu(fac, delta)
+        pud = PUDeformer(model, patches, fac.kernel, fac.term, auto_eps=True)
+        pud.report = report
+        errors.check_solve(report)
+        pud.plans = self.plans
+        return PUNodeDeformer(pud=pud, cfg=self.cfg, params=self.params)

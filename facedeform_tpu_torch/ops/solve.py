@@ -249,62 +249,100 @@ def _map_col_blocks(refine_fn, b: torch.Tensor, kb: int = 3):
     return tuple(torch.cat(parts, dim=-1) for parts in zip(*outs))
 
 
-def _lu_against_df_impl(a_hi, a_lo, b, n_refine, gmres_ir=True, f=None):
-    """Solve (a_hi + a_lo) X = b with an f32 LU of a_hi (factored here
-    unless its LUFactors f are given) and the solution kept as (x_hi, x_lo).
+class DFSystem(NamedTuple):
+    """What a refined solve against a_hi + a_lo reads besides its
+    right-hand side (df_system): the f32 words where GMRES-IR's operator
+    reads them (None under stationary refinement, which never does; so
+    their presence selects GMRES-IR in solve_df), the
+    f32 LU of a_hi, the float64 system a_hi + a_lo each residual runs
+    against, and ||a_hi||_F for the report.  A leading batch axis (one
+    system per partition-of-unity patch) rides on every field.  It holds
+    nothing of a right-hand side, so a caller that re-solves one system
+    for many may keep it (ops/pu.PUFitPlan)."""
+
+    a_hi: Optional[torch.Tensor]
+    a_lo: Optional[torch.Tensor]
+    f: LUFactors
+    a64: torch.Tensor
+    a_norm: torch.Tensor
+
+
+def df_system(a_hi, a_lo, gmres_ir=True, f=None) -> DFSystem:
+    """The DFSystem of (a_hi + a_lo): a_hi factored here unless its
+    LUFactors f are given.  A batch solved by GMRES-IR goes one system
+    after another, so its norms are taken one system at a time too."""
+    a_hi, a_lo = a_hi.float(), a_lo.float()
+    with highest_precision():
+        f = lu_factor_hp(a_hi) if f is None else f
+    a64 = a_hi.double() + a_lo.double()
+    if gmres_ir and a_hi.ndim == 3:
+        a_norm = torch.stack([torch.linalg.norm(a, dim=(-2, -1)) for a in a_hi])
+    else:
+        a_norm = torch.linalg.norm(a_hi, dim=(-2, -1))
+    if not gmres_ir:
+        a_hi = a_lo = None
+    return DFSystem(a_hi, a_lo, f, a64, a_norm)
+
+
+def solve_df(s: DFSystem, b, n_refine):
+    """Solve (a_hi + a_lo) X = b against a DFSystem with the solution kept
+    as (x_hi, x_lo).
 
     Each sweep's residual b - (a_hi + a_lo)(x_hi + x_lo) is float64.  With
-    gmres_ir its correction equation is solved by LU-preconditioned GMRES
+    GMRES-IR (a system that keeps its words) its correction equation is solved by LU-preconditioned GMRES
     (GMRES-IR, Carson & Higham), which converges where stationary
     refinement stalls at cond * u ~ 1; its f32 operator is
     a_hi @ v + a_lo @ v as two separate products, never (a_hi + a_lo) @ v,
     whose f32 sum would round a_lo away.  Without it, each sweep is one
     LU-preconditioned correction (stationary refinement).
 
-    a_hi, a_lo (K, n, n) and b (K, n, k) carry a batch of K systems (the
-    partition-of-unity patches); the stationary sweeps run batched, GMRES-IR
-    one system after another, each against its slice of the batched
-    factors, as torch.linalg.lu_solve takes them.  Returns ((x_hi, x_lo), report), the
+    A batch of K systems (the partition-of-unity patches) takes b (K, n,
+    k): the stationary sweeps run batched, GMRES-IR one system after
+    another, each against its slice of the batched factors, as
+    torch.linalg.lu_solve takes them.  Returns ((x_hi, x_lo), report), the
     report's fields with the leading K axis."""
     from facedeform_tpu_torch.ops.krylov import gmres
 
-    a_hi, a_lo, b = a_hi.float(), a_lo.float(), b.float()
-    with highest_precision():
-        f = lu_factor_hp(a_hi) if f is None else f
-    if gmres_ir and a_hi.ndim == 3:
-        outs = [_lu_against_df_impl(a_hi[i], a_lo[i], b[i], n_refine, True,
-                                    LUFactors(f.lu[i], f.piv[i]))
-                for i in range(a_hi.shape[0])]
+    b = b.float()
+    gmres_ir = s.a_hi is not None
+    if gmres_ir and s.a64.ndim == 3:
+        outs = [solve_df(DFSystem(s.a_hi[i], s.a_lo[i], LUFactors(s.f.lu[i], s.f.piv[i]),
+                                  s.a64[i], s.a_norm[i]), b[i], n_refine)
+                for i in range(s.a64.shape[0])]
         x_hi = torch.stack([o[0][0] for o in outs])
         x_lo = torch.stack([o[0][1] for o in outs])
         return (x_hi, x_lo), SolveReport(*(torch.stack(f) for f in zip(*[o[1] for o in outs])))
-    a64 = a_hi.double() + a_lo.double()
     with highest_precision():
 
         def msolve(v):
-            return lu_solve(f, v)
+            return lu_solve(s.f, v)
 
         def matvec(v):
-            return a_hi @ v + a_lo @ v
+            return s.a_hi @ v + s.a_lo @ v
 
         def refine(b_blk):
             b64 = b_blk.double()
             x_hi = msolve(b_blk)
             x_lo = torch.zeros_like(x_hi)
             for _ in range(n_refine):
-                r = _residual64(a64, x_hi, x_lo, b64)
+                r = _residual64(s.a64, x_hi, x_lo, b64)
                 if gmres_ir:
                     dx, _ = gmres(matvec, r, msolve, restart=16, max_restarts=2)
                 else:
                     dx = msolve(r)
                 x_hi, e = _two_sum(x_hi, dx)
                 x_lo = x_lo + e
-            return x_hi, x_lo, _residual64(a64, x_hi, x_lo, b64)
+            return x_hi, x_lo, _residual64(s.a64, x_hi, x_lo, b64)
 
         x_hi, x_lo, r = _map_col_blocks(refine, b)
-    report = _report_from(torch.linalg.norm(a_hi, dim=(-2, -1)),
-                          torch.diagonal(f.lu, dim1=-2, dim2=-1), x_hi, b, r)
+    report = _report_from(s.a_norm, torch.diagonal(s.f.lu, dim1=-2, dim2=-1), x_hi, b, r)
     return (x_hi, x_lo), report
+
+
+def _lu_against_df_impl(a_hi, a_lo, b, n_refine, gmres_ir=True, f=None):
+    """solve_df against the DFSystem of (a_hi + a_lo), a_hi factored here
+    unless its LUFactors f are given."""
+    return solve_df(df_system(a_hi, a_lo, gmres_ir, f), b, n_refine)
 
 
 def lu_solve_refined_against_df(

@@ -425,9 +425,10 @@ def test_route_seam_keeps_what_each_route_keeps(route):
     """Poses A, B, A through one node: each cook equals a fresh node's cook
     of its pose bit for bit, and the cooks' spans and counters show what
     the route's plan (deformer.fit_route) keeps.  The dense route factors
-    once and refits the later poses; the PU route rebuilds its patches and
-    factors every pose and builds its eval plan for the first pose only;
-    the Krylov route has no plan and fits every pose."""
+    once and refits the later poses; the PU route builds its patches, its
+    patch factorizations and its eval plan for the first pose only and
+    solves the later poses against them; the Krylov route has no plan and
+    fits every pose."""
     mesh, r0, _ = _scene(_Side(False))
     cfg, params = DeformConfig(**ROUTES[route]), DeformParams()
     a = Mesh(points=_rig_pose(r0.points))
@@ -457,8 +458,9 @@ def test_route_seam_keeps_what_each_route_keeps(route):
         assert spans_named("fit.refit") == [0, 1, 1]
     elif route == "pu":
         assert type(node._plan).__name__ == "PUFitPlan"
-        assert moved("pu.patch_sets") == [1, 1, 1]
-        assert all(n > 0 for n in spans_named("fit.factor"))
+        assert moved("pu.patch_sets") == [1, 0, 0]
+        assert spans_named("fit.factor")[0] > 0 and spans_named("fit.factor")[1:] == [0, 0]
+        assert moved("pu.fit_hits") == [0, 1, 1]
         assert moved("pu.plans") == [1, 0, 0] and moved("pu.plan_hits") == [0, 1, 1]
         assert spans_named("fit.refit") == [0, 0, 0]
     else:

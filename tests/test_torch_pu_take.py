@@ -115,13 +115,16 @@ def test_reference_patches_equal_build_patches(markers):
 
 def test_configuration_states_the_ports_pu_defaults():
     """The configuration's "pu" block is what the node's PU fit takes: the
-    facade's defaults, which the node does not override, and eps "auto"."""
+    facade's defaults, which the node's fit (PUFitPlan.refit, whose first
+    pose builds the patches) does not override, and eps "auto"."""
     method = catalog.config(CONFIG)["pu"]
     fit = inspect.signature(pu.PUDeformer.fit).parameters
     assert method["patch_size"] == fit["patch_size"].default == 192
     assert method["overlap"] == fit["overlap"].default == 1.3
     assert method["eps"] == fit["eps"].default == "auto"
-    node_fit = inspect.getsource(pu.PUNodeDeformer.fit)
+    build = inspect.signature(pu.build_patches).parameters
+    assert build["patch_size"].default == 192 and build["overlap"].default == 1.3
+    node_fit = inspect.getsource(pu.PUFitPlan.refit)
     assert 'eps="auto"' in node_fit and "patch_size" not in node_fit and "overlap" not in node_fit
 
 
@@ -180,7 +183,7 @@ class _Take:
 
     def cook(self, pose, **kw):
         """(CookResult, the PU counters' deltas over the cook)."""
-        names = ("pu.patch_sets", "pu.plans", "pu.plan_hits")
+        names = ("pu.patch_sets", "pu.plans", "pu.plan_hits", "pu.fit_hits")
         before = [profiling.counter(n) for n in names]
         res = self.node.cook([self.mesh, self.rest, Mesh(points=pose)] + self.shapes,
                              self.cfg, self.params, **kw)
@@ -199,22 +202,26 @@ def _equal(a, b) -> None:
 
 
 def test_a_take_keeps_the_eval_plan_across_pose_refits():
-    """Four poses of a take through one node: every pose refits (a patch
-    set each), only the first builds a plan, the others find it, and each
-    cook equals a fresh node's cook of its pose bit for bit."""
+    """Four poses of a take through one node: only the first builds the
+    patch set, the patch factorizations and the eval plan; the others
+    solve against the kept factors (pu.fit_hits) and find the plan, and
+    each cook equals a fresh node's cook of its pose bit for bit."""
     scene, (cfg, params) = _scene400()
     take = _Take(scene, cfg, params)
     for i, pose in enumerate(_take_poses(scene, 4)):
         res, n = take.cook(pose)
-        assert n == {"pu.patch_sets": 1, "pu.plans": 1 if i == 0 else 0,
-                     "pu.plan_hits": 0 if i == 0 else 1}
+        first = int(i == 0)
+        assert n == {"pu.patch_sets": first, "pu.plans": first,
+                     "pu.plan_hits": 1 - first, "pu.fit_hits": 1 - first}
         _equal(res, take.fresh(pose))
 
 
 def test_an_edited_rest_rig_or_a_new_mesh_rebuilds_the_plan():
-    """Misses: a rest rig with one marker moved changes the patch balls and
-    a new mesh Mesh its data id, so each builds a plan and equals a fresh
-    node's cook; the "plain" and "cuda" routes keep a plan each."""
+    """Misses: a rest rig with one marker moved changes the patch balls, so
+    it builds a new patch set, new factors and a plan; a new mesh Mesh
+    changes its data id, so it builds a plan and keeps the patches and
+    factors; each cook equals a fresh node's cook; the "plain" and "cuda"
+    routes keep a plan each."""
     scene, (cfg, params) = _scene400()
     take = _Take(scene, cfg, params)
     pose0, pose1, pose2 = _take_poses(scene, 3)
@@ -224,13 +231,15 @@ def test_an_edited_rest_rig_or_a_new_mesh_rebuilds_the_plan():
     moved[7] += 0.01
     take.rest = Mesh(points=moved)
     take.rest.set_attr("class", scene.classes)
+    plan = take.node._plan
     res, n = take.cook(pose1)
-    assert n == {"pu.patch_sets": 1, "pu.plans": 1, "pu.plan_hits": 0}
+    assert n == {"pu.patch_sets": 1, "pu.plans": 1, "pu.plan_hits": 0, "pu.fit_hits": 0}
+    assert take.node._plan is not plan and take.node._plan.factors.systems is not None
     _equal(res, take.fresh(pose1))
 
     take.mesh = Mesh(points=scene.points.copy(), faces=scene.faces)
     res, n = take.cook(pose2)
-    assert n == {"pu.patch_sets": 1, "pu.plans": 1, "pu.plan_hits": 0}
+    assert n == {"pu.patch_sets": 0, "pu.plans": 1, "pu.plan_hits": 0, "pu.fit_hits": 1}
     _equal(res, take.fresh(pose2))
 
     d = take.node._deformer
@@ -263,6 +272,52 @@ def test_the_plan_cache_stays_bounded_across_a_take_with_secondaries():
     assert len(plans) == 8
 
 
+# ----------------------------------------- the patch factors across pose refits
+def _fits_equal(a, b) -> None:
+    """Two fits' weights, tails and every SolveReport field bit for bit."""
+    for f in ("w_hi", "w_lo", "poly_hi", "poly_lo"):
+        assert torch.equal(getattr(a[0], f), getattr(b[0], f)), f
+    for f, x, y in zip(pu.SolveReport._fields, a[1], b[1]):
+        assert (x is None and y is None) or torch.equal(x, y), f
+
+
+@pytest.mark.parametrize("markers,case", [(400, "plain"), (2000, "plain"),
+                                          (400, "confidence"), (2000, "chunks"),
+                                          (2000, "past_budget")])
+def test_a_kept_factor_refit_equals_a_cold_fit(markers, case, monkeypatch):
+    """A PUFitPlan's refits of three poses each equal a cold
+    PUNodeDeformer.fit of the pose, and the one-off fit_pu of it, bit for
+    bit in the weights, the tails and the report.  "confidence" takes the
+    weighted ridge (lam > 0); "chunks" forces chunks of 8 patches, so
+    several chunks' factors are kept and reused; "past_budget" keeps no
+    factors, so every refit refactors its patches and counts no hit."""
+    c = _config(markers, 24)
+    scene = catalog.scene("sphere_markers")(c, SEED, torch.device("cpu"))
+    cfg, params = drive.program_config(c)
+    confidence = None
+    if case == "confidence":
+        confidence = np.random.default_rng(1).uniform(0.2, 1.0, markers).astype(np.float32)
+    if case == "chunks":
+        monkeypatch.setattr(pu, "_FIT_BYTES_PER_ENTRY", 10 ** 9)
+    if case == "past_budget":
+        monkeypatch.setattr(pu, "pu_fit_budget", 1.0)
+    plan = pu.PUFitPlan(scene.rest, cfg, params, confidence=confidence, device="cpu")
+    for i, pose in enumerate(_take_poses(scene, 3)):
+        hits = profiling.counter("pu.fit_hits")
+        got = plan.refit(pose).pud
+        kept = plan.factors.systems is not None
+        assert profiling.counter("pu.fit_hits") - hits == int(i > 0 and kept)
+        cold = pu.PUNodeDeformer.fit(scene.rest, pose, cfg, params, confidence=confidence,
+                                     device="cpu").pud
+        once = pu.fit_pu(scene.rest, pose, eps="auto", confidence=confidence, device="cpu",
+                         **pu.node_fit_kwargs(cfg, params))
+        for want in ((cold.model, cold.report), once):
+            _fits_equal((got.model, got.report), want)
+    chunks = len(plan.factors.chunks())
+    assert kept == (case != "past_budget")
+    assert chunks == (2 if case in ("chunks", "past_budget") else 1)
+
+
 # ------------------------------------------------------- the harness, traced
 # The harness runs below use 2000 markers on a 24 x 24 sphere: at 400 a patch
 # spans a quarter of the sphere and the program's p_err on this seed reads
@@ -293,15 +348,15 @@ def _run(tmp_path, trace=True, seconds=5.0):
 
 
 def test_traced_take_reads_the_pu_spans_and_counters(tmp_path):
-    """A traced run of the cell: `correct`, a patch set rebuilt every cook
-    and the plan of the set-up's cold cook kept (pu.rebuilds 1), so host
-    time in the patch build and no plan span in the window (pu.plan_ms
-    absent)."""
+    """A traced run of the cell: `correct`, and the patches, their
+    factorizations and the plan of the set-up's cold cook kept
+    (pu.rebuilds 0), so no patch build and no plan span in the window
+    (pu.patches_ms and pu.plan_ms absent)."""
     out = _run(tmp_path)
     assert out["correct"], out["checks"]
     m = {k: v["value"] for k, v in out["metrics"].items()}
-    assert m["pu.rebuilds"] == 1.0
-    assert m["pu.patches_ms"] > 0.0 and "pu.plan_ms" not in m
+    assert m["pu.rebuilds"] == 0.0
+    assert "pu.patches_ms" not in m and "pu.plan_ms" not in m
     assert m["cook.solve_ms"] > 0.0 and m["cook.eval_ms"] > 0.0
     assert "pu_eval_roofline" not in m      # no device time on the CPU
 
@@ -310,15 +365,17 @@ def test_a_cook_records_the_pu_spans_and_counters():
     """Under a profiler a PU cook's spans nest under FaceDeformNode.cook
     and its counters move: one patch set and one plan; the patch systems'
     factorization is fit.factor inside pu.fit; #7's call (the CPU twin
-    here) is a pu.tiles span."""
+    here) is a pu.tiles span.  A second pose on the same node builds no
+    patches and no systems: its pu.fit solves against the kept factors."""
     c = _config(400, 24)
     scene = catalog.scene("sphere_markers")(c, SEED, torch.device("cpu"))
     cfg, params = drive.program_config(c)
-    node = FaceDeformNode(device="cpu")
+    take = _Take(scene, cfg, params)
+    node = take.node
     pose = scene.rest + 0.01 * np.random.default_rng(0).standard_normal(scene.rest.shape)
     first = profiling._REC.next_id
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-        _cook(node, scene, cfg, params, pose.astype(np.float32))
+        take.cook(pose.astype(np.float32))
     recorded = [s for s in profiling.spans() if s.id >= first]
     (root,) = [s for s in recorded if s.parent is None]
     assert root.name == "FaceDeformNode.cook"
@@ -332,6 +389,18 @@ def test_a_cook_records_the_pu_spans_and_counters():
     # one chunk's factorization solved once and in each of 3 refinement sweeps,
     # what cook.refit_lu_solves would read on this route
     assert root.counters["fit.lu_solves"] == 4
+    assert root.counters.get("pu.fit_hits", 0) == 0
+
+    first = profiling._REC.next_id
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        take.cook((pose + 0.01).astype(np.float32))
+    recorded = [s for s in profiling.spans() if s.id >= first]
+    (root,) = [s for s in recorded if s.parent is None]
+    names = {s.name for s in recorded}
+    assert "pu.fit" in names
+    assert not {"pu.patches", "pu.assemble", "fit.factor", "pu.plan"} & names
+    assert root.counters["fit.lu_solves"] == 4 and root.counters["pu.fit_hits"] == 1
+    assert root.counters.get("pu.patch_sets", 0) == 0 and root.counters.get("pu.plans", 0) == 0
     d = node._deformer.pud
     pts = torch.as_tensor(scene.points)
     plan = d.make_plan(scene.points, backend="cuda")
