@@ -87,15 +87,16 @@ class Run:
         return 100.0 * need * self.profile.requests / (self.profile.wall_us * 1e-6)
 
 
-def _window(loop, seconds: float, trace: bool):
-    """Run requests for `seconds`; a traced window also profiles a part."""
+def _window(loop, seconds: float, trace: bool, min_requests: int = 0):
+    """Run requests for `seconds`, and on until `min_requests` have been
+    attempted; a traced window also profiles a part."""
     latencies, units, attempted, failed = [], 0, 0, 0
     requests = [] if trace else None
     prof = rf = None
     profiled, prof_t0, profiling = 0, 0.0, trace
     t0 = time.perf_counter()
     end = t0 + seconds
-    while time.perf_counter() < end:
+    while time.perf_counter() < end or attempted < min_requests:
         if profiling and prof is None and attempted >= PROFILE_FROM:
             from torch.profiler import ProfilerActivity, profile
 
@@ -142,7 +143,7 @@ def forbidden_modules() -> list:
 
 def run(root: Path, workload: str, seed: int, seconds: float, trace: bool, t_start: float,
         device: Optional[str] = None, base: Path = catalog.HERE,
-        controls: Optional[dict] = None) -> dict:
+        controls: Optional[dict] = None, min_requests: int = 0) -> dict:
     """One run; returns the result line's object.  device=None takes the
     card (and checks for it); tests pass "cpu" at test sizes.  `controls`
     ({name: reference.Prec}; calibrate.py and the tests, never a benchmark
@@ -176,7 +177,7 @@ def run(root: Path, workload: str, seed: int, seconds: float, trace: bool, t_sta
     setup_s = time.perf_counter() - t_start
 
     latencies, units, attempted, failed, elapsed, requests, prof, profiled = _window(
-        loop, seconds, trace)
+        loop, seconds, trace, min_requests)
     mem_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     profile = None
     if prof is not None:

@@ -17,15 +17,26 @@ import torch
 
 from gpubench import catalog, compare, drive, harness, inputs, peaks, reference
 
-from .conftest import HERE, ROOT
+from .conftest import HERE, ROOT, TINY_MESH, TINY_SHAPES, shrink
 
 SEED = 2**31 + 12345          # seeds reach past 32 signed bits
-CELLS = [w["name"] for w in catalog.benchmark(ROOT)["workloads"]]
+BENCH = catalog.benchmark(ROOT)
+CELLS = [w["name"] for w in BENCH["workloads"]]
+#: a traced window's requests up to the end of its profiled part
+TRACED = harness.PROFILE_FROM + harness.PROFILE_MIN
 
 
-def _run(tiny, cell, seed=SEED, seconds=0.4, trace=False, controls=None):
+def _run(tiny, cell, seed=SEED, seconds=0.4, trace=False, controls=None, min_requests=1):
+    """A run at test sizes; its window waits for `min_requests` requests
+    however slow the CPU is, so a verdict always judges some."""
     return harness.run(tiny, cell, seed, seconds, trace, time.perf_counter(), device="cpu",
-                       base=tiny / "gpubench", controls=controls)
+                       base=tiny / "gpubench", controls=controls, min_requests=min_requests)
+
+
+def _unit(cell):
+    """What the cell's loop delivers: "cooks" or "frames"."""
+    mix = catalog.traffic(catalog.cell(BENCH, cell)["traffic"])
+    return catalog.loop(mix["loop"]).Loop.unit
 
 
 # ------------------------------------------------------------------ inputs
@@ -148,6 +159,30 @@ def test_benchmark_json_keeps_the_contract():
         assert catalog.metrics_of(b, w, "per_layer")
 
 
+# ------------------------------------------------------------ test sizes
+#: each configuration's rig at test sizes, (markers, radius): a change to
+#: conftest.shrink that moves one shows here.  multilayer_tangent is not in
+#: the benchmark: the reference node's second family as it ships (MULTILAYER,
+#: layers 4, radius 1, lambda 0.1, tangent), written into the copy as a new file.
+TEST_RIGS = {"face1m_gauss_rig1k": (40, 0.5), "face1m_tps_rig4k": (400, 1.0),
+             "face1m_pu_bfm53k": (2000, 0.1), "multilayer_tangent": (40, 0.5)}
+
+
+@pytest.mark.parametrize("name", sorted(TEST_RIGS))
+def test_shrink_cuts_each_configuration_to_its_test_rig(tiny, name):
+    path = tiny / "gpubench" / "configs" / f"{name}.json"
+    if name == "multilayer_tangent":
+        c = catalog.config("face1m_gauss_rig1k")
+        c["deform_config"].update(model="MULTILAYER", layers=4, tangent=True)
+        c["deform_params"].update(radius=1.0, lam=0.1)
+        path.write_text(json.dumps(dict(c, name=name)))
+        shrink(tiny)
+    c = json.loads(path.read_text())
+    assert (c["rig"]["markers"], c["deform_params"]["radius"]) == TEST_RIGS[name]
+    assert c["mesh"]["n_u"] == c["mesh"]["n_v"] == TINY_MESH
+    assert c["shapes"]["count"] == TINY_SHAPES
+
+
 # ------------------------------------------------------------ the runs
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_runs_correct_on_the_cpu(tiny, cell):
@@ -160,7 +195,7 @@ def test_cell_runs_correct_on_the_cpu(tiny, cell):
 
 
 def test_traced_run_reads_its_stages(tiny):
-    out = _run(tiny, "gauss1k.drag", seconds=1.0, trace=True)
+    out = _run(tiny, "gauss1k.drag", seconds=1.0, trace=True, min_requests=TRACED)
     assert out["correct"]
     for name in ("cook.host_ms", "cook.solve_ms", "cook.eval_ms", "cook.morph_ms"):
         assert out["metrics"][name]["value"] > 0.0
@@ -212,17 +247,22 @@ def _stale_cook(monkeypatch):
 
 
 def _altered_cook(monkeypatch):
+    """One vertex of the eval's output moved by 1e-3 where it is produced,
+    on every route the node cooks: the global model's Deformer.apply and
+    the partition-of-unity facade's PUNodeDeformer.apply."""
     from facedeform_tpu_torch.deformer import Deformer
+    from facedeform_tpu_torch.ops.pu import PUNodeDeformer
 
-    real = Deformer.apply
+    for cls in (Deformer, PUNodeDeformer):
+        real = cls.apply
 
-    def apply(self, *a, **k):
-        p, w = real(self, *a, **k)
-        p = p.clone()
-        p[len(p) // 2] += 1e-3
-        return p, w
+        def apply(self, *a, _real=real, **k):
+            p, w = _real(self, *a, **k)
+            p = p.clone()
+            p[len(p) // 2] += 1e-3
+            return p, w
 
-    monkeypatch.setattr(Deformer, "apply", apply)
+        monkeypatch.setattr(cls, "apply", apply)
 
 
 def _stale_shot(monkeypatch):
@@ -268,17 +308,32 @@ def _altered_shot(monkeypatch):
     monkeypatch.setattr(batched, "apply_frames", apply_frames)
 
 
-FAULTS = [(c, f) for c in CELLS if not c.endswith(".shot")
-          for f in (_stale_cook, _altered_cook)] + \
-         [(c, f) for c in CELLS if c.endswith(".shot")
-          for f in (_stale_shot, _half_shot, _altered_shot)]
+#: the faults planted in each unit a loop delivers: a state returned
+#: unchanged, half of a batch replaced by the mean of the rest, an answer
+#: altered where it is produced
+FAULTS_OF = {"cooks": (_stale_cook, _altered_cook),
+             "frames": (_stale_shot, _half_shot, _altered_shot)}
+FAULTS = [(c, f) for c in CELLS for f in FAULTS_OF.get(_unit(c), ())]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS, ids=[f"{c}-{f.__name__}" for c, f in FAULTS])
 def test_planted_fault_fails_correct(tiny, monkeypatch, cell, fault):
+    """The fault is read by the comparison: every request came back, and a
+    number the cell compares is past its limit."""
     fault(monkeypatch)
     out = _run(tiny, cell, seconds=0.6)
     assert not out["correct"], out["checks"]
+    assert out["failed"] == 0
+    assert any(c["value"] > c["limit"] for c in out["checks"].values()), out["checks"]
+
+
+def test_planted_faults_cover_every_cell():
+    """Every cell of BENCHMARK.json has a stale state and an altered answer
+    planted under it."""
+    for cell in CELLS:
+        planted = {f.__name__ for c, f in FAULTS if c == cell}
+        assert any("stale" in f for f in planted), cell
+        assert any("altered" in f for f in planted), cell
 
 
 # --------------------------------------------- adding files, not editing
@@ -394,13 +449,13 @@ def test_a_new_kind_of_mix_and_a_new_model_family_are_new_files_only(tiny):
     b["workloads"].append({"name": "mq.scrub", "config": "mq_rig", "traffic": "scrub",
                            "chips": 1, "why": "a test"})
     for m in b["end_to_end"] + b["per_layer"]:
-        if "tps4k.drag" in m.get("workloads", []):
+        if "gauss1k.drag" in m.get("workloads", []):
             m["workloads"].append("mq.scrub")
     (tiny / "BENCHMARK.json").write_text(json.dumps(b))
-    out = _run(tiny, "mq.scrub", seconds=0.6)
+    out = _run(tiny, "mq.scrub", seconds=0.0, min_requests=2)
     assert out["correct"], out["checks"]
     assert out["attempted"] >= 2 and out["metrics"]["cooks_per_s"]["value"] > 0.0
-    traced = _run(tiny, "mq.scrub", seconds=1.0, trace=True)
+    traced = _run(tiny, "mq.scrub", seconds=0.0, trace=True, min_requests=TRACED)
     assert traced["correct"] and traced["metrics"]["cook.eval_ms"]["value"] > 0.0
     after = _digests(tiny)
     changed = {p for p in before if p != Path("BENCHMARK.json") and before[p] != after.get(p)}
@@ -415,6 +470,19 @@ def test_run_without_a_card_ends_without_a_result():
                          env={"CUDA_VISIBLE_DEVICES": "", "PATH": "/usr/bin:/bin",
                               "HOME": str(ROOT)})
     assert out.returncode != 0 and "correct" not in out.stdout
+
+
+def test_only_tests_hold_a_window_open_for_requests():
+    """min_requests keeps a window open past its seconds until that many
+    requests were attempted; a benchmark run never passes it, so its
+    window is its seconds alone."""
+    class Loop:
+        def step(self, times):
+            return 0.0, 1
+
+    assert harness._window(Loop(), 0.0, False, min_requests=3)[1:3] == (3, 3)
+    assert harness._window(Loop(), 0.0, False)[2] == 0
+    assert "min_requests" not in (HERE / "run.py").read_text()
 
 
 def test_forbidden_modules_compares_whole_top_level_names(monkeypatch):

@@ -30,11 +30,12 @@ def _metric(name):
 
 
 def _run(tiny, cell, trace):
-    """A traced window profiles from its third request on, at least three;
-    a CPU cook of the TPS rig takes a few tenths of a second."""
-    seconds = (4.0 if cell.startswith("tps") else 2.0) if trace else 0.4
+    """A traced window profiles from its third request on, at least three:
+    it waits for those requests however long a CPU cook takes.  An untraced
+    one runs 0.4 s and at least one request."""
+    seconds, wait = (0.0, harness.PROFILE_FROM + harness.PROFILE_MIN) if trace else (0.4, 1)
     return harness.run(tiny, cell, SEED, seconds, trace, time.perf_counter(), device="cpu",
-                       base=tiny / "gpubench")
+                       base=tiny / "gpubench", min_requests=wait)
 
 
 @pytest.fixture
