@@ -55,6 +55,9 @@ from facedeform_tpu_torch.utils import profiling
 for _name in ("control_records", "evaluate_cuda", "evaluate_cuda_diff", "culled_tables",
               "evaluate_cuda_culled", "frames_stream", "evaluate_cuda_frames"):
     profiling.count(f"launches.{_name}", 0)
+# launches of the dense and culled kernels (#1, #2) that project onto a
+# tangent frame
+profiling.count("eval.frame_launches", 0)
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _NVCC_FLAGS = (
@@ -362,6 +365,8 @@ def evaluate_cuda(
             int(strict_parity), int(_center_phi(kernel, term)),
             _r2(radius), float(falloffrate), _stream(points.device)), "fd_eval_dense")
     profiling.count("launches.evaluate_cuda")
+    if frame is not None:
+        profiling.count("eval.frame_launches")
     return out, falloff
 
 
@@ -558,6 +563,8 @@ def evaluate_cuda_culled(
             model.w_rbf.shape[0], int(RBFKernel(kernel)), int(strict_parity),
             _r2(radius), float(falloffrate), _stream(points.device)), "fd_eval_culled")
     profiling.count("launches.evaluate_cuda_culled")
+    if frame is not None:
+        profiling.count("eval.frame_launches")
     return out, falloff
 
 

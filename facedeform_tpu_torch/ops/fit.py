@@ -41,6 +41,8 @@ from facedeform_tpu_torch.utils.precision import highest_precision
 
 _FIELDS = ("ctrl", "w_rbf", "w_poly", "eps", "w_rbf_lo", "w_poly_lo")
 
+profiling.count("fit.layers", 0)
+
 
 class RBFModel(nn.Module):
     """Solved deformation model.
@@ -251,8 +253,10 @@ def _solve_layers(rest_ctrl, delta, cfg, eps0, lam0, layer_solve):
     """The coarse-to-fine layer loop of fit() (both routes) and refit():
     layer_solve(layer, eps_l, term, b) -> (x, x_lo or None, report,
     apply_sys).  The polynomial tail rides the first layer; each finer
-    layer fits what the coarser ones left.  Returns (model, the report of
-    the layer with the worst backward error)."""
+    layer fits what the coarser ones left.  Each layer is a span,
+    fit.layer (its solve and the residual product the next layer fits),
+    and counts in fit.layers.  Returns (model, the report of the layer
+    with the worst backward error)."""
     n = rest_ctrl.shape[0]
     dev = rest_ctrl.device
     w_layers, w_lo_layers, eps_layers, reports = [], [], [], []
@@ -260,24 +264,26 @@ def _solve_layers(rest_ctrl, delta, cfg, eps0, lam0, layer_solve):
     w_poly_lo = torch.zeros((cfg.n_poly, 3), device=dev)
     target = delta
     for layer in range(cfg.n_layers):
-        eps_l = eps0 * (0.5 ** layer)
-        term = cfg.term if layer == 0 else PolyTerm.ZERO
-        b = assemble_rhs(target, term)
-        x, x_lo, report, apply_sys = layer_solve(layer, eps_l, term, b)
-        w_l = x[:n]
-        w_layers.append(w_l)
-        eps_layers.append(eps_l)
-        reports.append(report)
-        if x_lo is not None:
-            w_lo_layers.append(x_lo[:n])
-        if layer == 0 and cfg.n_poly > 0:
-            w_poly = x[n:]
+        with profiling.span("fit.layer"):
+            eps_l = eps0 * (0.5 ** layer)
+            term = cfg.term if layer == 0 else PolyTerm.ZERO
+            b = assemble_rhs(target, term)
+            x, x_lo, report, apply_sys = layer_solve(layer, eps_l, term, b)
+            w_l = x[:n]
+            w_layers.append(w_l)
+            eps_layers.append(eps_l)
+            reports.append(report)
             if x_lo is not None:
-                w_poly_lo = x_lo[n:]
-        if layer + 1 < cfg.n_layers:
-            # the top block is Phi w + lam w + P c, so this layer's
-            # prediction at the controls is (A x)[:n] - lam w
-            target = target - (apply_sys(x)[:n] - _lam_col(lam0) * w_l)
+                w_lo_layers.append(x_lo[:n])
+            if layer == 0 and cfg.n_poly > 0:
+                w_poly = x[n:]
+                if x_lo is not None:
+                    w_poly_lo = x_lo[n:]
+            if layer + 1 < cfg.n_layers:
+                # the top block is Phi w + lam w + P c, so this layer's
+                # prediction at the controls is (A x)[:n] - lam w
+                target = target - (apply_sys(x)[:n] - _lam_col(lam0) * w_l)
+        profiling.count("fit.layers")
     has_lo = bool(w_lo_layers)
     model = RBFModel(
         ctrl=rest_ctrl.clone(),  # never alias the caller's array

@@ -33,7 +33,8 @@ DRAG_STAGES = {"copy", "solve", "eval", "morph", "output"}
 DRAG_TREE = {
     "FaceDeformNode.cook": {"copy", "solve", "cook.report", "eval", "morph", "output"},
     "solve": {"fit.refit"},
-    "fit.refit": {"fit.refine"},
+    "fit.refit": {"fit.layer"},
+    "fit.layer": {"fit.refine"},
     "eval": {"eval.apply", "eval.falloff_copy"},
     "morph": {"morph.weights", "morph.apply"},
 }
@@ -187,7 +188,8 @@ def test_exported_spans_sit_on_the_trace_clock(scene, tmp_path):
     runs = [_trace_cook(scene, str(tmp_path / f"trace{i}"), 0.25 + 0.01 * i) for i in range(3)]
     assert min(max(off) for _, _, off in runs) <= 50.0, [max(off) for _, _, off in runs]
     exported, events, _ = runs[0]
-    assert len(exported["spans"]) == len(DRAG_TREE["FaceDeformNode.cook"]) + 7
+    # the stages' inner spans, one fit.layer among them (QNN has one layer)
+    assert len(exported["spans"]) == len(DRAG_TREE["FaceDeformNode.cook"]) + 8
     assert exported["counters"]["fit.lu_solves"] > 0
     lu = [e for e in events if e.get("ph") == "C" and e["name"] == "fit.lu_solves"]
     assert lu and max(e["args"]["value"] for e in lu) == exported["counters"]["fit.lu_solves"]
