@@ -49,6 +49,7 @@ from facedeform_tpu_torch.utils import errors, profiling
 from facedeform_tpu_torch.utils.profiling import StageTimes, host_f32, stage
 
 profiling.count("eval.autotune_runs", 0)
+profiling.count("eval.autotune_hits", 0)
 
 
 def _no_mesh_devices(mesh_devices) -> None:
@@ -108,9 +109,11 @@ class FaceDeformNode:
         self._rest_key: Optional[int] = None
         self._rest_attr: Optional[np.ndarray] = None
         # Autotuned eval backend (dense vs culled kernel), keyed on (mesh
-        # pos id, solve key): culling efficacy depends on the rig's
+        # pos id, pose-free fit key): culling efficacy depends on the rig's
         # locality and the mesh's vertex-order coherence, which no static
-        # rule captures; both are measured once and reused.
+        # rule captures; both are measured once per mesh and rest rig and
+        # kept across poses, since a refit changes only the weights and
+        # both kernels' cost follows the rest rig's centers and cutoffs.
         self._backend_key: Optional[tuple] = None
         self._backend_choice: str = "auto"
         #: the autotune's last measurement, {backend: best ms}, and the
@@ -356,19 +359,26 @@ class FaceDeformNode:
 
     # -------------------------------------------------------------- backend
     def _choose_backend(self, mesh_in: Mesh, deformer, points, dist2, frame,
-                        group_mask) -> str:
+                        group_mask, tune_key) -> str:
         """Autotune the dense vs the culled eval kernel, cached on (pos_id,
-        solve key): culling wins on localized rigs and loses on spatially
+        tune_key): culling wins on localized rigs and loses on spatially
         incoherent vertex orders, so a one-time measurement of both is the
-        only rule that is right on every mesh.  Each candidate takes a
-        warm-up launch and then the best of 2, timed by CUDA events.  The
-        deformer names the candidates (autotune_backends); a single one is
-        taken untimed."""
+        only rule that is right on every mesh.  tune_key is the cook's fit
+        key without the pose (a checkpoint's whole key on an external
+        cook): the choice is kept across the poses of one rest rig, as
+        both kernels evaluate against the rest rig's centers with the same
+        cutoffs and a refit replaces only the weights, which do not change
+        what either kernel costs.  Each candidate takes a warm-up launch
+        and then the best of 2, timed by CUDA events.  The deformer names
+        the candidates (autotune_backends); a single one is taken
+        untimed."""
         cands = deformer.autotune_backends(mesh_in.num_points)
         if len(cands) == 1:
             return cands[0]
-        key = (mesh_in.pos_id, self._fit_key)
-        if key != self._backend_key:
+        key = (mesh_in.pos_id, tune_key)
+        if key == self._backend_key:
+            profiling.count("eval.autotune_hits")
+        else:
             timings = {}
             profiling.count("eval.autotune_runs")
             with profiling.span("eval.autotune"):
@@ -663,12 +673,14 @@ class FaceDeformNode:
                 rest_rig.attr_id if confidence is not None else None,
                 str(dev),
             )
+        # the fit key minus the deformed rig: a pose-only change (marker
+        # drag, next tracked frame) keeps it, the route's plan re-solves
+        # the pose and the eval autotune keeps its choice; an external
+        # cook keeps its whole key, whose id(deformer) tells checkpoints
+        # apart
+        plan_key = fit_key if fit_key[0] == "external" else fit_key[:1] + fit_key[2:]
         if fit_key != self._fit_key:
             with stage("solve", times):
-                # the plan key is the fit key minus the deformed rig: a
-                # pose-only change (marker drag, next tracked frame) keeps
-                # it, and the route's plan re-solves the pose
-                plan_key = fit_key[:1] + fit_key[2:]
                 if self._plan is not None and plan_key == self._plan_key:
                     # the plan's cfg/params carry fit-time eval toggles:
                     # refresh to this cook's
@@ -730,7 +742,7 @@ class FaceDeformNode:
                   else profiling.to_device(np.asarray(group_mask, bool), dev))
         with stage("eval", times):
             backend = self._choose_backend(
-                mesh_in, deformer, rest_pts, dist2, frame, mask_t
+                mesh_in, deformer, rest_pts, dist2, frame, mask_t, plan_key
             )
             with profiling.span("eval.apply"):
                 # the point set keyed by the mesh positions' data id: the PU

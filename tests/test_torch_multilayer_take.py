@@ -193,19 +193,22 @@ def card():
 def test_frame_launches_count_the_framed_kernels_on_the_card(card, layers, tangent):
     """On a 4,098-vertex sphere (the autotune times #1 and #2) a framed
     L = 4 cook counts every launch of #1/#2 in eval.frame_launches, the
-    autotune's among them; an unframed L = 1 cook counts none."""
+    autotune's among them; an unframed L = 1 cook counts none.  The first
+    pose's cook times both kernels; the next pose keeps the choice and
+    launches the chosen kernel alone."""
     c = _config(layers, tangent, n_side=64)
     scene, loop = _take(c, card)
     poses = _poses(scene)
-    loop._cook(loop.Mesh(points=poses[0]), loop.params)
     names = ("eval.frame_launches", "launches.evaluate_cuda", "launches.evaluate_cuda_culled",
              "fit.layers")
-    before = {n: profiling.counter(n) for n in names}
-    loop._cook(loop.Mesh(points=poses[1]), loop.params)
-    moved = {n: profiling.counter(n) - before[n] for n in names}
-    launches = moved["launches.evaluate_cuda"] + moved["launches.evaluate_cuda_culled"]
-    assert launches == 7            # the autotune's 2 x 3 and the cook's own
-    assert moved["eval.frame_launches"] == (launches if tangent else 0)
+    # the autotune's 2 x 3 and the cook's own, then the cook's own
+    for pose, want in zip(poses[:2], (7, 1)):
+        before = {n: profiling.counter(n) for n in names}
+        loop._cook(loop.Mesh(points=pose), loop.params)
+        moved = {n: profiling.counter(n) - before[n] for n in names}
+        launches = moved["launches.evaluate_cuda"] + moved["launches.evaluate_cuda_culled"]
+        assert launches == want
+        assert moved["eval.frame_launches"] == (launches if tangent else 0)
     assert moved["fit.layers"] == layers
 
 

@@ -18,8 +18,9 @@ from facedeform_tpu.geometry.primitives import fibonacci_points, uv_sphere
 from facedeform_tpu.geometry.topology import compute_tangent_frame as j_frame
 from facedeform_tpu.node import FaceDeformNode as JNode
 from facedeform_tpu_torch import (
-    DeformConfig, DeformParams, FaceDeformNode, Mesh, convert,
+    DeformConfig, DeformParams, Deformer, FaceDeformNode, Mesh, convert,
 )
+from facedeform_tpu_torch.deformer import AUTOTUNE_BACKENDS
 from facedeform_tpu_torch.geometry.topology import compute_tangent_frame as t_frame
 from facedeform_tpu_torch.ops import dbse
 from facedeform_tpu_torch.ops import psd as tpsd
@@ -467,6 +468,117 @@ def test_route_seam_keeps_what_each_route_keeps(route):
         assert node._plan is None
         assert all(n > 0 for n in moved("fit.gmres_restarts"))
         assert spans_named("fit.refit") == [0, 0, 0]
+
+
+class _TimedEvent:
+    """torch.cuda.Event on the CPU: a timed eval reads a fixed time for the
+    backend it ran, so the autotune's choice is known."""
+
+    ms = {"cuda": 2.0, "cuda_culled": 1.0}
+    ran = None
+
+    def __init__(self, enable_timing=False):
+        pass
+
+    def record(self):
+        pass
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return self.ms[_TimedEvent.ran]
+
+
+@pytest.fixture
+def two_candidates(monkeypatch):
+    """Every deformer names the dense and the culled kernel for the
+    autotune, and either backend evaluates on the CPU path, so a CPU node
+    times two candidates as a card's does."""
+    real_apply = Deformer.apply
+
+    def apply(self, points, *args, backend="auto", **kw):
+        if backend in AUTOTUNE_BACKENDS:
+            _TimedEvent.ran, backend = backend, "auto"
+        return real_apply(self, points, *args, backend=backend, **kw)
+
+    monkeypatch.setattr(Deformer, "autotune_backends", lambda self, n: AUTOTUNE_BACKENDS)
+    monkeypatch.setattr(Deformer, "apply", apply)
+    monkeypatch.setattr(torch.cuda, "Event", _TimedEvent)
+
+
+def _tuned_cook(node, inputs, cfg, params, **kw):
+    """(P, (autotune runs, autotune hits)) of one cook."""
+    names = ("eval.autotune_runs", "eval.autotune_hits")
+    before = [profiling.counter(n) for n in names]
+    pts = node.cook(inputs, cfg, params, **kw).mesh.points
+    return pts, tuple(profiling.counter(n) - b for n, b in zip(names, before))
+
+
+def test_autotune_choice_is_kept_across_poses(two_candidates):
+    """Poses A, B, A of one rest rig time the two kernels once: the later
+    cooks reuse the choice (an autotune hit each), each cook equal to a
+    fresh node's bit for bit; an eval-only param change keeps it too."""
+    mesh, r0, _ = _scene(_Side(False))
+    cfg, params = DeformConfig(dofalloff=True), DeformParams()
+    a = Mesh(points=_rig_pose(r0.points))
+    b = Mesh(points=_rig_pose(r0.points, amp=0.3, dirn=(0.2, 1.0, 0.1)))
+    node = FaceDeformNode(device="cpu")
+    for pose, want in zip((a, b, a), ((1, 0), (0, 1), (0, 1))):
+        got, moved = _tuned_cook(node, [mesh, r0, pose], cfg, params)
+        assert moved == want
+        fresh = FaceDeformNode(device="cpu").cook([mesh, r0, pose], cfg, params)
+        np.testing.assert_array_equal(got, fresh.mesh.points)
+        assert node.backend_timings == {"cuda": 2.0, "cuda_culled": 1.0}
+        assert node.last_backend == "cuda_culled"
+    _, moved = _tuned_cook(node, [mesh, r0, b], cfg, params._replace(falloffrate=2.0))
+    assert moved == (0, 1)
+
+
+def _moved_rest(mesh, r0, cfg, params):
+    rest = Mesh(points=(r0.points * np.float32(1.05)).astype(np.float32))
+    return mesh, rest, params, {}
+
+
+def _moved_mesh(mesh, r0, cfg, params):
+    return (Mesh(points=(mesh.points * np.float32(1.02)).astype(np.float32),
+                 faces=mesh.faces.copy()), r0, params, {})
+
+
+def _new_radius(mesh, r0, cfg, params):
+    return mesh, r0, params._replace(radius=0.8), {}
+
+
+def _second_checkpoint(mesh, r0, cfg, params):
+    pose = _rig_pose(r0.points, amp=0.25)
+    d = Deformer.fit(r0.points, pose, cfg, params, device="cpu")
+    return mesh, r0, params, {"deformer": d}
+
+
+@pytest.mark.parametrize("change", [_moved_rest, _moved_mesh, _new_radius, _second_checkpoint],
+                         ids=["rest_rig", "mesh_positions", "radius", "external_deformer"])
+def test_autotune_reruns_once_when_its_key_moves(two_candidates, change):
+    """A moved rest rig, a new mesh pos_id, a fit param (radius) or a
+    second external deformer after a first re-times the kernels once; the
+    next pose under the change keeps that choice.  Each cook equals a fresh
+    node's bit for bit."""
+    mesh, r0, _ = _scene(_Side(False))
+    cfg, params = DeformConfig(dofalloff=True), DeformParams()
+    first = {}
+    if change is _second_checkpoint:
+        first = {"deformer": Deformer.fit(r0.points, _rig_pose(r0.points), cfg, params,
+                                          device="cpu")}
+    mesh2, r2, params2, kw = change(mesh, r0, cfg, params)
+    cooks = [(mesh, r0, params, first, _rig_pose(r0.points)),
+             (mesh2, r2, params2, kw, _rig_pose(r2.points, amp=0.3)),
+             (mesh2, r2, params2, kw, _rig_pose(r2.points))]
+    node = FaceDeformNode(device="cpu")
+    for (m, rest, p, cook_kw, pose), want in zip(cooks, ((1, 0), (1, 0), (0, 1))):
+        inputs = [m, rest, Mesh(points=pose)]
+        got, moved = _tuned_cook(node, inputs, cfg, p, **cook_kw)
+        assert moved == want
+        fresh = FaceDeformNode(device="cpu").cook(inputs, cfg, p, **cook_kw)
+        np.testing.assert_array_equal(got, fresh.mesh.points)
 
 
 def test_node_passes_equal_their_ops():

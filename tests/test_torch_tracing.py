@@ -271,7 +271,8 @@ def test_counters_are_registered_at_import_and_an_unknown_name_is_refused():
         wrappers = [m for m in mods if callable(getattr(m, k.split(".", 1)[1], None))]
         assert len(wrappers) == 1, k
     for k in ("sync.count", "sync.wait_ns", "fence.count", "fence.wait_ns", "copy.dtoh_bytes",
-              "copy.htod_bytes", "fit.lu_solves", "fit.gmres_restarts", "eval.autotune_runs"):
+              "copy.htod_bytes", "fit.lu_solves", "fit.gmres_restarts", "eval.autotune_runs",
+              "eval.autotune_hits"):
         assert profiling.counter(k) >= 0
     with pytest.raises(KeyError, match="launches.evaluate_cuda_typo"):
         profiling.counter("launches.evaluate_cuda_typo")
